@@ -1,0 +1,489 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (nothing is caught):
+
+1. Print the card's name and power limit, build the CUDA kernels from
+   ``src/repro_torch/kernels/csrc`` and print the build time and nvcc's
+   register / shared-memory report.
+2. Hold each kernel (K1 ``xnor_matmul_vpu``, K2 ``xnor_matmul_mxu``, K3
+   ``xnor_conv2d_vpu``, K4 ``xnor_conv2d_mxu``) against its plain PyTorch
+   version (``kernels/ref.py``) on the card at the Table 2 path's shapes,
+   with and without thresholds, plus ragged and strided extras; require
+   bit-exact results. Time the kernel, the plain version and one PyTorch
+   library call on the unpacked ±1 operands (a yardstick only; the port
+   never calls it) by their device time per call (``device_ms``: CUDA
+   events, the calls queued behind a sleep kernel so no host launch cost
+   is counted), the kernel also per call as the host sees it, and compute
+   each kernel's bound from its bytes and bit-operations.
+3. Serve 16 requests through a 4-slot ``BCNNEngine`` on the card, on path
+   "mxu" and again on "vpu", with launch counters zeroed just before and
+   read just after each run; hold the served logits, every layer's output
+   (each layer fed the same input) and CONV-1's bits against the same port
+   on the CPU.
+
+Prints one JSON line of per-kernel numbers, then, last, the result line
+``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
+CUDA device is present or the package is missing.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+N_SLOTS = 4
+N_REQUESTS = 16
+SEED = 0
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate
+# and dense int8 tensor-core rate. __popc issue rate per SM per clock for
+# compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput); each popc covers 32 bit-MACs.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+POPC_PER_CLK_PER_SM = 16
+
+SOURCES = {
+    "xnor_matmul_vpu": ("src/repro_torch/kernels/csrc/xnor_matmul.cu",
+                        "src/repro/kernels/xnor_matmul.py:83"),
+    "xnor_matmul_mxu": ("src/repro_torch/kernels/csrc/xnor_matmul.cu",
+                        "src/repro/kernels/xnor_matmul.py:139"),
+    "xnor_conv2d_vpu": ("src/repro_torch/kernels/csrc/xnor_conv.cu",
+                        "src/repro/kernels/xnor_conv.py:170"),
+    "xnor_conv2d_mxu": ("src/repro_torch/kernels/csrc/xnor_conv.cu",
+                        "src/repro/kernels/xnor_conv.py:189"),
+}
+# Table 2 binary convs: (H=W, C, O); FCs: (N, k, thresholds)
+CONV_SHAPES = [(32, 128, 128), (16, 128, 256), (16, 256, 256),
+               (8, 256, 512), (8, 512, 512)]
+FC_SHAPES = [(1024, 8192, True), (1024, 1024, True), (10, 1024, False)]
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Median time of one call between CUDA events recorded around it:
+    the device work plus whatever the device waits for the host's launch
+    (for a call shorter than its Python launch cost, mostly the latter)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for s, e in ev:
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+class Bound:
+    """Least time for a call: bytes over the HBM rate vs. bit-MACs over
+    the kernel's compute rate (popc issue for vpu, int8 MMA for mxu)."""
+
+    def __init__(self):
+        props = torch.cuda.get_device_properties(0)
+        clock_mhz = float(smi("clocks.max.sm").split()[0])
+        self.sms = props.multi_processor_count
+        self.bitmacs_per_s = {
+            "vpu": self.sms * POPC_PER_CLK_PER_SM * clock_mhz * 1e6 * 32,
+            "mxu": INT8_OPS_PER_S / 2,
+        }
+        print(f"bound model: {self.sms} SMs at {clock_mhz:.0f} MHz max SM "
+              f"clock -> popc {self.bitmacs_per_s['vpu']:.4g} bit-MAC/s; "
+              f"int8 MMA {self.bitmacs_per_s['mxu']:.4g} MAC/s; HBM "
+              f"{HBM_BYTES_PER_S:.3g} B/s")
+
+    def __call__(self, variant: str, nbytes: int, bitmacs: int):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = bitmacs / self.bitmacs_per_s[variant] * 1e3
+        return t_bytes, t_ops
+
+
+def device_ms(fn, n: int = 21) -> float:
+    """Median device time of one call of ``fn``: CUDA events around each of
+    ``n`` calls queued behind a sleep kernel, so the device runs the calls
+    back to back and no host launch cost falls inside an interval. The
+    sleep is lengthened until it outlasts the host's enqueueing; keep
+    ``n`` x (launches per call) well under the device's queue of pending
+    launches (about a thousand), or the host blocks on a full queue."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    while True:
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+        torch.cuda._sleep(cycles)
+        gate = torch.cuda.Event()
+        gate.record()
+        for s, e in ev:
+            s.record()
+            fn()
+            e.record()
+        queued_behind_sleep = not gate.query()
+        torch.cuda.synchronize()
+        if queued_behind_sleep:
+            return statistics.median(s.elapsed_time(e) for s, e in ev)
+        cycles *= 4
+        check(cycles < 3 * 10 ** 9, "device_ms: the host never got ahead "
+              "of the device (a sync or a full launch queue in the call)")
+
+
+def kernel_rows(fn, n: int = 20) -> list[tuple[float, int, str]]:
+    """(ms per call, launches per call, name) of every CUDA kernel that
+    ``n`` calls of ``fn`` ran, from torch.profiler; [] when the profiler
+    recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((t / n / 1e3, ev.count // n, ev.key))
+    return sorted(rows, reverse=True)
+
+
+def profile_forward(fwd, x, n: int = 20) -> None:
+    """Where one forward's time goes: host wall time per forward, device
+    time per forward (``device_ms``), the device's idle share = 1 -
+    device / wall, and the kernels by device time (torch.profiler)."""
+    fwd(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fwd(x)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    busy_ms = device_ms(lambda: fwd(x), n=3)       # ~120 launches each
+    print(f"  forward wall {wall_ms:.4f} ms, device {busy_ms:.4f} ms, "
+          f"device idle share {1 - busy_ms / wall_ms:.3f}")
+    rows = kernel_rows(lambda: fwd(x), n)
+    if not rows:
+        print("  per-kernel breakdown: not measured (the profiler recorded "
+              "no device kernels)")
+        return
+    print(f"  per-kernel breakdown (torch.profiler): "
+          f"{sum(r[1] for r in rows)} launches, "
+          f"{sum(r[0] for r in rows):.4f} ms of kernels per forward")
+    for t, count, key in rows[:10]:
+        print(f"    {t:.4f} ms  x{count}  {key[:90]}")
+
+
+def rand_bits(g, shape, device):
+    return torch.randint(0, 2, shape, generator=g, dtype=torch.int8).to(device)
+
+
+def rand_thr(g, n, k, device):
+    c = torch.randint(0, k + 1, (n,), generator=g).to(torch.float32)
+    flip = torch.randint(0, 2, (n,), generator=g).to(torch.bool)
+    return c.to(device), flip.to(device)
+
+
+def kernel_phase(bound: Bound) -> dict:
+    """Phase 2: bit-exact checks and timings of K1-K4 at the path shapes.
+    Returns per-kernel sums over one forward's launches at batch N_SLOTS."""
+    from repro_torch.core import bitpack
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import xnor_conv as kconv
+    from repro_torch.kernels import xnor_matmul as kmm
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(SEED)
+    stats = {name: dict(max_abs_err=0, ms=0.0, call_ms=0.0, plain_ms=0.0,
+                        t_bytes=0.0, t_ops=0.0, library_ms=0.0)
+             for name in SOURCES}
+
+    def record(name, got, want, what):
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"{name} {what}: {got.dtype}{tuple(got.shape)} vs plain "
+              f"{want.dtype}{tuple(want.shape)}")
+        check(err == 0, f"{name} {what}: max |kernel - plain| = {err}")
+
+    # --- K1 / K2: FC shapes of the path, ragged extras, im2col shapes
+    mm_cases = [(N_SLOTS, n, k, thr, True) for n, k, thr in FC_SHAPES]
+    mm_cases += [(5, 1000, 1170, True, False), (37, 77, 33, False, False)]
+    mm_cases += [(N_SLOTS * h * h, o, 9 * c, True, False)
+                 for h, c, o in CONV_SHAPES]
+    for m, n, k, thr, on_path in mm_cases:
+        a = bitpack.pack_bits(bitpack.pad_to_pack(rand_bits(g, (m, k), dev)))
+        w = bitpack.pack_bits(bitpack.pad_to_pack(rand_bits(g, (n, k), dev)))
+        c, f = rand_thr(g, n, k, dev) if thr else (None, None)
+
+        def plain():
+            y = ref.xnor_matmul_ref(a, w, k)
+            return ref.norm_binarize_ref(y, c, f) if thr else y
+
+        want = plain()
+        a_pm1 = bitpack.decode_pm1(bitpack.unpack_bits(a, k), torch.float16)
+        w_pm1t = bitpack.decode_pm1(bitpack.unpack_bits(w, k),
+                                    torch.float16).T.contiguous()
+        nbytes = a.numel() * 4 + w.numel() * 4 + m * n * (1 if thr else 4)
+        nbytes += n * 5 if thr else 0
+        for name, fn in (("xnor_matmul_vpu", kmm.xnor_matmul_vpu),
+                         ("xnor_matmul_mxu", kmm.xnor_matmul_mxu)):
+            def run(fn=fn):
+                return fn(a, w, k=k, thr_c=c, thr_flip=f)
+            record(name, run(), want, f"M={m} N={n} k={k} thr={thr}")
+            if not on_path:
+                continue
+            s = stats[name]
+            variant = name.rsplit("_", 1)[1]
+            t_b, t_o = bound(variant, nbytes, m * n * k)
+            s["t_bytes"] += t_b
+            s["t_ops"] += t_o
+            d = device_ms(run)
+            s["ms"] += d
+            s["call_ms"] += time_ms(run)
+            print(f"  {name}: {d:.4g} ms on the device, bound "
+                  f"{max(t_b, t_o):.4g} ms")
+            s["plain_ms"] += device_ms(plain)
+            s["library_ms"] += device_ms(lambda: a_pm1 @ w_pm1t)
+        print(f"K1/K2 bit-exact vs plain at M={m} N={n} k={k} "
+              f"thresholds={thr}{' (path shape)' if on_path else ''}")
+
+    # --- K3 / K4: the five binary convs, plus strided / ragged extras
+    cv_cases = [(N_SLOTS, h, h, c, o, 3, 1, 1, True, True)
+                for h, c, o in CONV_SHAPES]
+    cv_cases += [(N_SLOTS, h, h, c, o, 3, 1, 1, False, False)
+                 for h, c, o in CONV_SHAPES[::2]]
+    cv_cases += [(2, 9, 9, 64, 40, 3, 2, 1, True, False),
+                 (2, 10, 7, 48, 24, 5, 2, 2, False, False),
+                 (3, 11, 13, 32, 33, 3, 1, 1, True, False)]
+    for n, h, wd, c, o, f, s_, p, thr, on_path in cv_cases:
+        a_bits = rand_bits(g, (n, h, wd, c), dev)
+        w_bits = rand_bits(g, (o, f, f, c), dev)
+        aw = bitpack.pack_bits(bitpack.pad_to_pack(a_bits))
+        ww = kconv.pack_conv_weights(bitpack.decode_pm1(w_bits))
+        k = f * f * c
+        th, fl = rand_thr(g, o, k, dev) if thr else (None, None)
+
+        def plain():
+            y = ref.xnor_conv2d_ref(a_bits, w_bits, stride=s_, pad=p)
+            return ref.norm_binarize_ref(y, th, fl) if thr else y
+
+        want = plain()
+        ho = (h + 2 * p - f) // s_ + 1
+        wo = (wd + 2 * p - f) // s_ + 1
+        a16 = bitpack.decode_pm1(a_bits, torch.float16).permute(
+            0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        w16 = bitpack.decode_pm1(w_bits, torch.float16).permute(
+            0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        nbytes = aw.numel() * 4 + ww.numel() * 4
+        nbytes += n * ho * wo * o * (1 if thr else 4) + (o * 5 if thr else 0)
+        for name, fn in (("xnor_conv2d_vpu", kconv.xnor_conv2d_vpu),
+                         ("xnor_conv2d_mxu", kconv.xnor_conv2d_mxu)):
+            def run(fn=fn):
+                return fn(aw, ww, k=k, fh=f, fw=f, stride=s_, pad=(p, p),
+                          thr_c=th, thr_flip=fl)
+            record(name, run(), want, f"N={n} {h}x{wd} C={c} O={o} "
+                   f"{f}x{f}/s{s_} thr={thr}")
+            if not on_path:
+                continue
+            st = stats[name]
+            variant = name.rsplit("_", 1)[1]
+            t_b, t_o = bound(variant, nbytes, n * ho * wo * o * k)
+            st["t_bytes"] += t_b
+            st["t_ops"] += t_o
+            d = device_ms(run)
+            st["ms"] += d
+            st["call_ms"] += time_ms(run)
+            print(f"  {name}: {d:.4g} ms on the device, bound "
+                  f"{max(t_b, t_o):.4g} ms")
+            st["plain_ms"] += device_ms(plain)
+            st["library_ms"] += device_ms(lambda: torch.nn.functional.conv2d(
+                a16, w16, stride=s_, padding=p))
+        print(f"K3/K4 bit-exact vs plain at N={n} {h}x{wd} C={c} O={o} "
+              f"{f}x{f} stride {s_} thresholds={thr}"
+              f"{' (path shape)' if on_path else ''}")
+
+    for name, s in stats.items():
+        s["bound_ms"] = max(s["t_bytes"], s["t_ops"])
+        s["bound_by"] = "bytes" if s["t_bytes"] >= s["t_ops"] else "operations"
+        print(f"{name}: per forward at batch {N_SLOTS}: kernel "
+              f"{s['ms']:.4f} ms on the device ({s['call_ms']:.4f} ms per "
+              f"call with the host launch), bound {s['bound_ms']:.4f} ms "
+              f"({s['bound_by']}), plain {s['plain_ms']:.4f} ms, library "
+              f"{s['library_ms']:.4f} ms")
+    return stats
+
+
+def build_phase() -> None:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
+          f"({_build.library_path().name})")
+    for line in _build.build_log().splitlines():
+        if "Used" in line or "spill" in line or "error" in line:
+            print(f"  nvcc: {line.strip()}")
+
+
+def serve_phase() -> dict:
+    """Phase 3: serve on the card through both kernel paths; hold the
+    results against the port on the CPU. Returns each kernel's launch
+    count from its path's serving run."""
+    from repro_torch.core import bcnn, bconv
+    from repro_torch.core import execution_plan as xp
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.kernels import xnor_conv as kconv
+    from repro_torch.kernels import xnor_matmul as kmm
+    from repro_torch.serve.bcnn_engine import BCNNEngine
+
+    counters = {"xnor_matmul_vpu": kmm.xnor_matmul_vpu,
+                "xnor_matmul_mxu": kmm.xnor_matmul_mxu,
+                "xnor_conv2d_vpu": kconv.xnor_conv2d_vpu,
+                "xnor_conv2d_mxu": kconv.xnor_conv2d_mxu}
+    packed_cpu = bcnn.fold_model(bcnn.params_from_numpy(
+        bcnn.numpy_params(SEED)))
+    x_np, _ = SyntheticImages(global_batch=N_REQUESTS, seed=SEED).batch(0)
+    x_cpu = torch.from_numpy(x_np)
+    cpu_plan = xp.build_plan(packed_cpu, path="xla", device="cpu")
+    hs = [x_cpu]                          # every layer's CPU input / output
+    for idx in range(bcnn.N_LAYERS):
+        hs.append(bcnn.apply_packed_layer(packed_cpu, idx, hs[-1],
+                                          plan=cpu_plan))
+    logits_cpu = hs[-1].numpy()
+    check(logits_cpu.shape == (N_REQUESTS, 10)
+          and np.isfinite(logits_cpu).all(), "CPU logits malformed")
+
+    launches = {}
+    for path in ("mxu", "vpu"):
+        eng = BCNNEngine.from_packed(packed_cpu, n_slots=N_SLOTS, path=path,
+                                     device="cuda")
+        eng.warmup()
+        steps0 = eng.steps_executed
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rids = [eng.submit(img) for img in x_np]
+        out = eng.run()
+        dt = time.perf_counter() - t0
+        seen = {name: fn.launches for name, fn in counters.items()}
+        steps = eng.steps_executed - steps0
+        conv, mm = f"xnor_conv2d_{path}", f"xnor_matmul_{path}"
+        print(f"[{path}] launches over {steps} forwards: {seen}")
+        check(seen[conv] == 5 * steps and seen[mm] == 3 * steps,
+              f"[{path}] expected 5 conv and 3 matmul launches per forward")
+        check(all(v == 0 for k, v in seen.items() if k not in (conv, mm)),
+              f"[{path}] the other path's kernels launched")
+        launches[conv], launches[mm] = seen[conv], seen[mm]
+        check(sorted(out) == sorted(rids), f"[{path}] requests lost")
+        logits = np.stack([out[r] for r in rids])
+        check(np.isfinite(logits).all() and logits.shape == (N_REQUESTS, 10),
+              f"[{path}] served logits malformed")
+        check(np.allclose(logits, logits_cpu, rtol=1e-5, atol=1e-5),
+              f"[{path}] served logits differ from the CPU port: max "
+              f"{np.abs(logits - logits_cpu).max():.3g}")
+        check((logits.argmax(1) == logits_cpu.argmax(1)).all(),
+              f"[{path}] argmax differs from the CPU port")
+        st = eng.stats(last_n=N_REQUESTS)
+        print(f"[{path}] served {st['n']} requests through {N_SLOTS} slots "
+              f"in {dt * 1e3:.1f} ms: latency p50 {st['p50'] * 1e3:.3f} ms, "
+              f"p99 {st['p99'] * 1e3:.3f} ms, {st['throughput']:.1f} img/s; "
+              f"logits max |gpu - cpu| {np.abs(logits - logits_cpu).max():.3g}")
+
+        packed_gpu = eng.forward.packed
+        for strategy in ("direct", "im2col"):
+            plan = xp.build_plan(packed_gpu, path=path,
+                                 conv_strategy=strategy, device="cuda")
+            for idx in range(1, bcnn.N_LAYERS):
+                got = bcnn.apply_packed_layer(
+                    packed_gpu, idx, hs[idx].cuda(), plan=plan).cpu()
+                want = hs[idx + 1]
+                if idx == bcnn.N_LAYERS - 1:
+                    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+                          f"[{path}/{strategy}] FC-3 logits differ")
+                else:
+                    check(torch.equal(got, want),
+                          f"[{path}/{strategy}] layer {idx} output differs "
+                          f"from the CPU port")
+            print(f"[{path}/{strategy}] layers 1..8 each fed the CPU input: "
+                  f"bits exact, FC-3 logits allclose")
+        layer_ms = [time_ms(lambda i=i, h=hs[i][:N_SLOTS].cuda():
+                            bcnn.apply_packed_layer(packed_gpu, i, h,
+                                                    plan=eng.plan), reps=20)
+                    for i in range(bcnn.N_LAYERS)]
+        print(f"[{path}] per-layer ms per call at batch {N_SLOTS} "
+              f"(CONV-1..FC-3, CUDA events): "
+              + ", ".join(f"{t:.4f}" for t in layer_ms))
+        print(f"[{path}] profile of the served forward at batch {N_SLOTS}:")
+        profile_forward(eng.forward, x_cpu[:N_SLOTS].cuda())
+
+    z_cpu = bconv.fpconv_apply(packed_cpu.conv1, x_cpu, binarize_out=False)
+    z_gpu = bconv.fpconv_apply(packed_gpu.conv1, x_cpu.cuda(),
+                               binarize_out=False).cpu()
+    diff = (z_cpu >= 0) != (z_gpu >= 0)
+    n_diff = int(diff.sum())
+    check(bool((z_cpu[diff].abs() < 1e-3).all()),
+          "a CONV-1 bit differs where |z| >= 1e-3")
+    print(f"CONV-1 bits differing between card and CPU: {n_diff} of "
+          f"{diff.numel()} (all at |z| < 1e-3); max |z_gpu - z_cpu| "
+          f"{(z_gpu - z_cpu).abs().max().item():.3g}")
+    print(f"card: {smi('name,power.limit')}")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this smoke run needs one CUDA device")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import repro_torch  # noqa: F401  (fails here when run outside the repo)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = smi("name,power.limit")
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
+          f"{sys.version.split()[0]}")
+    build_phase()
+    stats = kernel_phase(Bound())
+    launches = serve_phase()
+    kernels = []
+    for name, (source, replaces) in SOURCES.items():
+        s = stats[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    torch.cuda.synchronize()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

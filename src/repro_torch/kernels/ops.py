@@ -1,0 +1,119 @@
+"""Public binary matmul / conv entry points (counterpart of
+``repro/kernels/ops.py``), with the reference signatures, output dtypes
+and padding rules.
+
+Dispatch is by the tensor's device:
+
+* CPU tensor — every ``path`` runs the plain PyTorch version
+  (``kernels/ref.py``), as the reference runs Pallas in interpret mode
+  off the TPU.
+* CUDA tensor — ``"vpu"`` launches K1/K3 (XNOR + popcount on the CUDA
+  cores), ``"mxu"`` launches K2/K4 (±1 int8 on the tensor cores), and
+  ``"xla"`` raises: the plain version is reached on the card only by
+  calling ``kernels/ref.py`` directly. No ``try`` falls back from a kernel.
+
+Padding: pad bits are 0 (−1) in both operands and agree, so the kernels
+subtract ``n_pad = Kw·32 − k`` (``L·32 − k`` for the per-position conv
+layout); spatial padding is the zero word (all −1); threshold lanes past N
+never yield a bit because the kernels mask their ragged edges.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import bitpack
+from repro_torch.kernels import ref
+from repro_torch.kernels import xnor_conv as kconv
+from repro_torch.kernels import xnor_matmul as kmm
+
+PATHS = ("vpu", "mxu", "xla")
+
+
+def _check_path(path: str, t: torch.Tensor) -> None:
+    if path not in PATHS:
+        raise ValueError(f"unknown kernel path {path!r}; use one of {PATHS}")
+    if t.is_cuda and path == "xla":
+        raise ValueError(
+            "path 'xla' is the plain PyTorch version and does not run on "
+            "CUDA tensors; use 'vpu' or 'mxu' on the card (or call "
+            "repro_torch/kernels/ref.py directly)")
+
+
+def _thr(thr_c, thr_flip):
+    if thr_c is None:
+        return None, None
+    return thr_c.to(torch.float32), thr_flip.to(torch.bool)
+
+
+def xnor_matmul(a_words: torch.Tensor, w_words: torch.Tensor, *, k: int,
+                thr_c: torch.Tensor | None = None,
+                thr_flip: torch.Tensor | None = None,
+                path: str = "mxu") -> torch.Tensor:
+    """Paper eq. (5): (..., Kw) int32 × (N, Kw) int32 → (..., N).
+
+    Returns int32 agree-counts y_l, or {0,1} int8 bits when per-output
+    thresholds are given (fused eq. 8: ``(y_l >= thr_c) XOR thr_flip``).
+    ``k`` is the true reduction length (the paper's cnum).
+    """
+    _check_path(path, a_words)
+    lead = a_words.shape[:-1]
+    kw = a_words.shape[-1]
+    if w_words.shape[-1] != kw:
+        raise ValueError(
+            f"packed word-count mismatch: activations carry {kw} int32 "
+            f"words, weights {w_words.shape[-1]}")
+    if bitpack.packed_len(k) != kw:
+        raise ValueError(
+            f"in_features k={k} needs ceil(k/32)={bitpack.packed_len(k)} "
+            f"packed int32 words, got {kw}")
+    a2 = a_words.reshape(-1, kw)
+    n = w_words.shape[0]
+    thr_c, thr_flip = _thr(thr_c, thr_flip)
+    if a2.is_cuda:
+        fn = kmm.xnor_matmul_vpu if path == "vpu" else kmm.xnor_matmul_mxu
+        y = fn(a2.contiguous(), w_words.contiguous(), k=k, thr_c=thr_c,
+               thr_flip=thr_flip)
+    else:
+        y = ref.xnor_matmul_ref(a2, w_words, k)
+        if thr_c is not None:
+            y = ref.norm_binarize_ref(y, thr_c, thr_flip)
+    return y.reshape(*lead, n)
+
+
+def xnor_conv2d(a_bits: torch.Tensor, w_words: torch.Tensor, *, k: int,
+                fh: int, fw: int, stride: int = 1,
+                pad: int | tuple[int, int] | None = None,
+                thr_c: torch.Tensor | None = None,
+                thr_flip: torch.Tensor | None = None,
+                path: str = "mxu") -> torch.Tensor:
+    """Direct (im2col-free) binary conv: (N, H, W, C) bits × packed filters.
+
+    a_bits:  (N, H, W, C) {0,1} int8 activation bits
+    w_words: (O, FH·FW·Cw) int32 per-position packed filters
+             (``xnor_conv.pack_conv_weights``)
+    k:       true reduction length FH·FW·C
+    pad:     scalar or (pad_h, pad_w); default SAME-style (fh//2, fw//2)
+    Returns (N, HO, WO, O) int32 agree-counts, or {0,1} int8 bits with
+    thresholds. Spatial padding is −1 (bit 0).
+    """
+    _check_path(path, a_bits)
+    if pad is None:
+        pad = (fh // 2, fw // 2)
+    ph, pw = (pad, pad) if isinstance(pad, int) else pad
+    n, h, w, c = a_bits.shape
+    o, ll = w_words.shape
+    kwc = bitpack.packed_len(c)
+    if ll != fh * fw * kwc:
+        raise ValueError(f"filters carry {ll} words per output; C={c} with "
+                         f"{fh}x{fw} taps needs {fh * fw * kwc}")
+    thr_c, thr_flip = _thr(thr_c, thr_flip)
+    if a_bits.is_cuda:
+        aw = bitpack.pack_bits(bitpack.pad_to_pack(a_bits))   # (N,H,W,Cw)
+        fn = kconv.xnor_conv2d_vpu if path == "vpu" else kconv.xnor_conv2d_mxu
+        return fn(aw, w_words.contiguous(), k=k, fh=fh, fw=fw, stride=stride,
+                  pad=(ph, pw), thr_c=thr_c, thr_flip=thr_flip)
+    w_bits = bitpack.unpack_bits(w_words.reshape(o, fh, fw, kwc))[..., :c]
+    y = ref.xnor_conv2d_ref(a_bits, w_bits, stride=stride, pad=(ph, pw))
+    if thr_c is not None:
+        y = ref.norm_binarize_ref(y, thr_c, thr_flip)
+    return y

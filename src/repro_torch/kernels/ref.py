@@ -1,0 +1,67 @@
+"""Plain PyTorch versions of the binary kernels (counterpart of
+``repro/kernels/ref.py``).
+
+They are what every wrapper in ``kernels/ops.py`` runs on a CPU tensor,
+and what ``chip_smoke.py`` holds the CUDA kernels against on the card.
+
+Each computes the ±1 dot product as a float32 matrix product of the
+unpacked operands. That is exact while every partial sum stays below
+2**24 in magnitude; the largest reduction on the Table 2 path is
+k = 8192 (FC-1). On a CUDA tensor the product goes to cuBLAS, so a caller
+there keeps float32 accumulation: ``chip_smoke.py`` turns TF32 off
+(``torch.backends.cuda.matmul.allow_tf32 = False``, the PyTorch default)
+before it calls these.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import bitpack
+
+
+def xnor_matmul_ref(a_words: torch.Tensor, w_words: torch.Tensor,
+                    k: int) -> torch.Tensor:
+    """(M, Kw) × (N, Kw) packed int32 → (M, N) int32 agree-counts (eq. 5).
+
+    Over the Kw·32 padded positions the ±1 dot gives agree = (Kw·32 +
+    dot)/2; the pad bits (0 in both operands) agree, so n_pad = Kw·32 − k
+    is subtracted.
+    """
+    kp = a_words.shape[-1] * bitpack.PACK
+    a = bitpack.decode_pm1(bitpack.unpack_bits(a_words))
+    w = bitpack.decode_pm1(bitpack.unpack_bits(w_words))
+    dot = a @ w.T
+    return ((dot + kp) / 2).to(torch.int32) - (kp - k)
+
+
+def norm_binarize_ref(y_l: torch.Tensor, c: torch.Tensor,
+                      flip: torch.Tensor) -> torch.Tensor:
+    """The fused NormBinarize epilogue (eq. 8) over the last axis."""
+    ge = y_l >= c
+    return torch.where(flip.to(torch.bool), ~ge, ge).to(torch.int8)
+
+
+def xnor_conv2d_ref(a_bits: torch.Tensor, w_bits: torch.Tensor, *,
+                    stride: int = 1,
+                    pad: int | tuple[int, int] = 1) -> torch.Tensor:
+    """Direct binary conv (eq. 3/5) on bits.
+
+    a_bits: (N, H, W, C) {0,1}; w_bits: (O, FH, FW, C) {0,1}.
+    Returns (N, HO, WO, O) int32 agree-counts. Spatial padding encodes −1
+    (bit 0), as in the packed kernels.
+    """
+    n, h, w, c = a_bits.shape
+    o, fh, fw, _ = w_bits.shape
+    ph, pw = (pad, pad) if isinstance(pad, int) else pad
+    ap = F.pad(bitpack.decode_pm1(a_bits), (0, 0, pw, pw, ph, ph),
+               value=-1.0)
+    ho = (h + 2 * ph - fh) // stride + 1
+    wo = (w + 2 * pw - fw) // stride + 1
+    cols = [ap[:, dy:dy + (ho - 1) * stride + 1:stride,
+               dx:dx + (wo - 1) * stride + 1:stride, :]
+            for dy in range(fh) for dx in range(fw)]
+    k = fh * fw * c
+    patches = torch.cat(cols, dim=-1).reshape(-1, k)   # (dy, dx, c) order
+    dot = patches @ bitpack.decode_pm1(w_bits).reshape(o, k).T
+    return ((dot + k) / 2).to(torch.int32).reshape(n, ho, wo, o)

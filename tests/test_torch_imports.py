@@ -1,0 +1,126 @@
+"""Import hygiene and device discipline of the PyTorch port.
+
+* Every ``repro_torch`` module, and ``chip_smoke.py`` (imported without
+  running its ``main``), loads in a fresh interpreter without pulling in
+  any ``jax*`` module or the reference package ``repro``.
+* Entry points asked for the GPU on a host without one raise instead of
+  running on the CPU; ``chip_smoke.py`` exits non-zero with no result
+  line when there is no CUDA device or no repository around it.
+"""
+import importlib.util
+import os
+import pkgutil
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+SRC = ROOT / "src"
+
+
+def _port_modules() -> list[str]:
+    import repro_torch
+    return ["repro_torch"] + [
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                              "repro_torch.")]
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    return env
+
+
+def test_port_imports_no_jax_and_no_reference():
+    modules = _port_modules()
+    assert {"repro_torch.kernels.ops", "repro_torch.serve.bcnn_engine",
+            "repro_torch.launch.serve_bcnn",
+            "repro_torch.core.bcnn_artifact"} <= set(modules)
+    code = (
+        "import importlib, importlib.util, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"spec = importlib.util.spec_from_file_location('chip_smoke', "
+        f"{str(ROOT / 'chip_smoke.py')!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro') or m.startswith('jax'))\n"
+        "print('BAD', bad)\n"
+        "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_sources_name_no_jax_or_reference():
+    pattern = re.compile(r"\s*(import|from)\s+(jax\w*|repro)(\.|\s|$)")
+    for path in [ROOT / "chip_smoke.py", *(SRC / "repro_torch").rglob("*.py")]:
+        for line in path.read_text().splitlines():
+            assert not pattern.match(line), f"{path}: {line}"
+
+
+def test_cuda_entry_points_raise_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points run there")
+    from repro_torch.core import bcnn
+    from repro_torch.launch import serve_bcnn
+    from repro_torch.serve.bcnn_engine import BCNNEngine
+    packed = bcnn.fold_model(bcnn.init(torch.Generator().manual_seed(0)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BCNNEngine.from_packed(packed)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bcnn.make_packed_forward(packed)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_bcnn.main(["--requests", "1"])
+
+
+def test_init_matches_reference_distributions():
+    from repro_torch.core import bcnn
+    p = bcnn.init(torch.Generator().manual_seed(0))
+    assert p.conv1.w.shape == (128, 3, 3, 3)
+    assert abs(float(p.conv1.w.std()) - 0.1) < 0.01
+    shapes = [tuple(c.w.shape) for c in p.convs]
+    assert shapes == [(o, 3, 3, i) for i, o, _ in bcnn.CONV_SPECS[1:]]
+    assert [tuple(f.w.shape) for f in p.fcs] == [
+        (o, i) for i, o in bcnn.FC_SPECS]
+    for layer in p.convs + p.fcs:
+        w = layer.w.numpy()
+        assert w.min() >= -1.0 and w.max() <= 1.0 and abs(w.mean()) < 0.05
+        assert np.all(layer.bn_var.numpy() == 1.0)
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_cuda(tmp_path, alone):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    script = ROOT / "chip_smoke.py"
+    cwd = ROOT
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_names_every_kernel():
+    spec = importlib.util.spec_from_file_location("chip_smoke_probe",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    from repro_torch.kernels import _build
+    assert set(mod.SOURCES) == set(_build.SIGNATURES)
+    for source, replaces in mod.SOURCES.values():
+        assert (ROOT / source).is_file()
+        path, line = replaces.split(":")
+        text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+        assert text.startswith("def xnor_")
