@@ -9,20 +9,27 @@ Phases, each fatal on failure (nothing is caught):
    ``src/repro_torch/kernels/csrc`` and print the build time and nvcc's
    register / shared-memory report.
 2. Hold each kernel (K1 ``xnor_matmul_vpu``, K2 ``xnor_matmul_mxu``, K3
-   ``xnor_conv2d_vpu``, K4 ``xnor_conv2d_mxu``) against its plain PyTorch
-   version (``kernels/ref.py``) on the card at the Table 2 path's shapes,
-   with and without thresholds, plus ragged and strided extras; require
-   bit-exact results. Time the kernel, the plain version and one PyTorch
-   library call on the unpacked ±1 operands (a yardstick only; the port
-   never calls it) by their device time per call (``device_ms``: CUDA
-   events, the calls queued behind a sleep kernel so no host launch cost
-   is counted), the kernel also per call as the host sees it, and compute
-   each kernel's bound from its bytes and bit-operations.
+   ``xnor_conv2d_vpu``, K4 ``xnor_conv2d_mxu``, K5
+   ``xnor_conv2d_pair_vpu`` / ``_mxu``) against its plain PyTorch version
+   (``kernels/ref.py``) on the card at the Table 2 path's shapes (K5 at
+   every legal tile), with and without thresholds, plus ragged, strided,
+   unpooled and 5×5 extras; require bit-exact results. Time the kernel,
+   the plain version and one PyTorch library call on the unpacked ±1
+   operands (a yardstick only; the port never calls it; for K5 two cuDNN
+   convs and a max-pool) by their device time per call (``device_ms``:
+   CUDA events, the calls queued behind a sleep kernel so no host launch
+   cost is counted), the kernel also per call as the host sees it, and
+   compute each kernel's bound from its bytes and bit-operations.
 3. Serve 16 requests through a 4-slot ``BCNNEngine`` on the card, on path
-   "mxu" and again on "vpu", with launch counters zeroed just before and
-   read just after each run; hold the served logits, every layer's output
-   (each layer fed the same input) and CONV-1's bits against the same port
-   on the CPU.
+   "mxu" and again on "vpu", unfused and then with the conv pairs fused
+   (K5), with launch counters zeroed just before and read just after each
+   run; hold the served logits, every layer's and fused pair's output
+   (each fed the same input) and CONV-1's bits against the same port on
+   the CPU, and profile each served forward.
+4. Tune the plan on the card twice (``kernels/autotune.py``, device
+   time at batch 4), require the two plans to agree and every candidate
+   to be bit-exact, export the plan in an artifact, reload it as the
+   cached plan and serve with it against the CPU port.
 
 Prints one JSON line of per-kernel numbers, then, last, the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -62,11 +69,19 @@ SOURCES = {
                         "src/repro/kernels/xnor_conv.py:170"),
     "xnor_conv2d_mxu": ("src/repro_torch/kernels/csrc/xnor_conv.cu",
                         "src/repro/kernels/xnor_conv.py:189"),
+    "xnor_conv2d_pair_vpu": (
+        "src/repro_torch/kernels/csrc/xnor_conv_fused.cu",
+        "src/repro/kernels/xnor_conv_fused.py:226"),
+    "xnor_conv2d_pair_mxu": (
+        "src/repro_torch/kernels/csrc/xnor_conv_fused.cu",
+        "src/repro/kernels/xnor_conv_fused.py:237"),
 }
 # Table 2 binary convs: (H=W, C, O); FCs: (N, k, thresholds)
 CONV_SHAPES = [(32, 128, 128), (16, 128, 256), (16, 256, 256),
                (8, 256, 512), (8, 512, 512)]
 FC_SHAPES = [(1024, 8192, True), (1024, 1024, True), (10, 1024, False)]
+# Table 2 fused pairs CONV-3/4 and CONV-5/6: (H=W, C, OA, OB), 3x3, pooled
+PAIR_SHAPES = [(16, 128, 256, 256), (8, 256, 512, 512)]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -123,30 +138,12 @@ class Bound:
 def device_ms(fn, n: int = 21) -> float:
     """Median device time of one call of ``fn``: CUDA events around each of
     ``n`` calls queued behind a sleep kernel, so the device runs the calls
-    back to back and no host launch cost falls inside an interval. The
-    sleep is lengthened until it outlasts the host's enqueueing; keep
-    ``n`` x (launches per call) well under the device's queue of pending
-    launches (about a thousand), or the host blocks on a full queue."""
+    back to back and no host launch cost falls inside an interval
+    (``kernels/autotune.py::device_times``, which the tuner races)."""
+    from repro_torch.kernels.autotune import device_times
     fn()
     torch.cuda.synchronize()
-    cycles = 20_000_000
-    while True:
-        ev = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
-        torch.cuda._sleep(cycles)
-        gate = torch.cuda.Event()
-        gate.record()
-        for s, e in ev:
-            s.record()
-            fn()
-            e.record()
-        queued_behind_sleep = not gate.query()
-        torch.cuda.synchronize()
-        if queued_behind_sleep:
-            return statistics.median(s.elapsed_time(e) for s, e in ev)
-        cycles *= 4
-        check(cycles < 3 * 10 ** 9, "device_ms: the host never got ahead "
-              "of the device (a sync or a full launch queue in the call)")
+    return statistics.median(device_times(fn, n)) * 1e3
 
 
 def kernel_rows(fn, n: int = 20) -> list[tuple[float, int, str]]:
@@ -211,7 +208,9 @@ def kernel_phase(bound: Bound) -> dict:
     Returns per-kernel sums over one forward's launches at batch N_SLOTS."""
     from repro_torch.core import bitpack
     from repro_torch.kernels import ref
+    from repro_torch.kernels import autotune
     from repro_torch.kernels import xnor_conv as kconv
+    from repro_torch.kernels import xnor_conv_fused as kfused
     from repro_torch.kernels import xnor_matmul as kmm
 
     dev = torch.device("cuda")
@@ -325,13 +324,94 @@ def kernel_phase(bound: Bound) -> dict:
               f"{f}x{f} stride {s_} thresholds={thr}"
               f"{' (path shape)' if on_path else ''}")
 
+    # --- K5: both Table 2 pairs at every legal tile, plus extras
+    # (n, h, w, c, oa, ob, fa, fb, pool, on_path)
+    pr_cases = [(N_SLOTS, h, h, c, oa, ob, 3, 3, True, True)
+                for h, c, oa, ob in PAIR_SHAPES]
+    pr_cases += [(2, 10, 6, 32, 32, 32, 3, 3, False, False),
+                 (2, 10, 6, 32, 32, 40, 5, 3, True, False),
+                 (3, 9, 7, 64, 64, 32, 5, 5, False, False),
+                 (2, 8, 8, 32, 32, 32, 5, 5, True, False)]
+    for n, h, wd, c, oa, ob, fa, fb, pool, on_path in pr_cases:
+        a_bits = rand_bits(g, (n, h, wd, c), dev)
+        wa_bits = rand_bits(g, (oa, fa, fa, c), dev)
+        wb_bits = rand_bits(g, (ob, fb, fb, oa), dev)
+        ka, kb = fa * fa * c, fb * fb * oa
+        ca, fla = rand_thr(g, oa, ka, dev)
+        cb, flb = rand_thr(g, ob, kb, dev)
+        thr = dict(thr_a_c=ca, thr_a_flip=fla, thr_b_c=cb, thr_b_flip=flb)
+
+        def plain():
+            return ref.xnor_conv2d_pair_ref(a_bits, wa_bits, wb_bits,
+                                            pool_b=pool, **thr)
+
+        want = plain()
+        aw = bitpack.pack_bits(a_bits)
+        waw = kconv.pack_conv_weights(bitpack.decode_pm1(wa_bits))
+        wbw = kconv.pack_conv_weights(bitpack.decode_pm1(wb_bits))
+        pf = 2 if pool else 1
+        geom = dict(pf=pf, fha=fa, fwa=fa, cwa=c // 32, fhb=fb, fwb=fb, oa=oa)
+        tiles = autotune.tile_candidates(h // pf, wd // pf, **geom)
+        if not on_path:
+            tiles = tuple(t for t in ((4, 4), (1, 2), (2, 2)) if t in tiles)
+        path_tile = kfused.pick_tiles(h // pf, wd // pf, **geom)
+        for name, fn in (("xnor_conv2d_pair_vpu", kfused.xnor_conv2d_pair_vpu),
+                         ("xnor_conv2d_pair_mxu", kfused.xnor_conv2d_pair_mxu)):
+            def run(fn=fn, tile=path_tile):
+                return fn(aw, waw, wbw, ka=ka, kb=kb, fha=fa, fwa=fa, fhb=fb,
+                          fwb=fb, pool=pool, th=tile[0], tw=tile[1], **thr)
+            for tile in tiles:
+                record(name, run(tile=tile), want,
+                       f"N={n} {h}x{wd} C={c} OA={oa} OB={ob} {fa}x{fa}/"
+                       f"{fb}x{fb} pool={pool} tile={tile}")
+            if not on_path:
+                continue
+            st = stats[name]
+            variant = name.rsplit("_", 1)[1]
+            nbytes = (aw.numel() + waw.numel() + wbw.numel()) * 4
+            nbytes += want.numel() + (oa + ob) * 5
+            # bit-MACs of conv A over the real map and of conv B, each
+            # counted once (the kernel's halo recompute is not work the
+            # function needs)
+            t_b, t_o = bound(variant, nbytes,
+                             n * h * wd * (oa * ka + ob * kb))
+            st["t_bytes"] += t_b
+            st["t_ops"] += t_o
+            d = device_ms(run)
+            st["ms"] += d
+            st["call_ms"] += time_ms(run)
+            print(f"  {name} at the path tile {path_tile}: {d:.4g} ms on "
+                  f"the device, bound {max(t_b, t_o):.4g} ms")
+            st["plain_ms"] += device_ms(plain)
+            a16 = bitpack.decode_pm1(a_bits, torch.float16).permute(
+                0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            mid16 = bitpack.decode_pm1(
+                ref.norm_binarize_ref(ref.xnor_conv2d_ref(a_bits, wa_bits),
+                                      ca, fla), torch.float16).permute(
+                0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            wa16, wb16 = (bitpack.decode_pm1(t, torch.float16).permute(
+                0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+                for t in (wa_bits, wb_bits))
+
+            def library():      # yardstick: two cuDNN convs + a max-pool
+                torch.nn.functional.conv2d(a16, wa16, padding=fa // 2)
+                return torch.nn.functional.max_pool2d(
+                    torch.nn.functional.conv2d(mid16, wb16,
+                                               padding=fb // 2), 2)
+            st["library_ms"] += device_ms(library)
+        print(f"K5 bit-exact vs plain at N={n} {h}x{wd} C={c} OA={oa} "
+              f"OB={ob} {fa}x{fa}/{fb}x{fb} pool={pool}, tiles {list(tiles)}"
+              f"{' (path shape)' if on_path else ''}")
+
     for name, s in stats.items():
         s["bound_ms"] = max(s["t_bytes"], s["t_ops"])
         s["bound_by"] = "bytes" if s["t_bytes"] >= s["t_ops"] else "operations"
+        lib = ("two cuDNN fp16 convs + max_pool2d" if "pair" in name
+               else "library")
         print(f"{name}: per forward at batch {N_SLOTS}: kernel "
               f"{s['ms']:.4f} ms on the device ({s['call_ms']:.4f} ms per "
               f"call with the host launch), bound {s['bound_ms']:.4f} ms "
-              f"({s['bound_by']}), plain {s['plain_ms']:.4f} ms, library "
+              f"({s['bound_by']}), plain {s['plain_ms']:.4f} ms, {lib} "
               f"{s['library_ms']:.4f} ms")
     return stats
 
@@ -347,96 +427,141 @@ def build_phase() -> None:
             print(f"  nvcc: {line.strip()}")
 
 
-def serve_phase() -> dict:
-    """Phase 3: serve on the card through both kernel paths; hold the
-    results against the port on the CPU. Returns each kernel's launch
-    count from its path's serving run."""
-    from repro_torch.core import bcnn, bconv
+def cpu_reference():
+    """The served images, the packed net on the CPU, every layer's CPU
+    input/output and the logits of the port's plain path."""
+    from repro_torch.core import bcnn
     from repro_torch.core import execution_plan as xp
     from repro_torch.data.synthetic import SyntheticImages
-    from repro_torch.kernels import xnor_conv as kconv
-    from repro_torch.kernels import xnor_matmul as kmm
-    from repro_torch.serve.bcnn_engine import BCNNEngine
-
-    counters = {"xnor_matmul_vpu": kmm.xnor_matmul_vpu,
-                "xnor_matmul_mxu": kmm.xnor_matmul_mxu,
-                "xnor_conv2d_vpu": kconv.xnor_conv2d_vpu,
-                "xnor_conv2d_mxu": kconv.xnor_conv2d_mxu}
-    packed_cpu = bcnn.fold_model(bcnn.params_from_numpy(
-        bcnn.numpy_params(SEED)))
     x_np, _ = SyntheticImages(global_batch=N_REQUESTS, seed=SEED).batch(0)
     x_cpu = torch.from_numpy(x_np)
+    packed_cpu = bcnn.fold_model(bcnn.params_from_numpy(
+        bcnn.numpy_params(SEED)))
     cpu_plan = xp.build_plan(packed_cpu, path="xla", device="cpu")
-    hs = [x_cpu]                          # every layer's CPU input / output
+    hs = [x_cpu]
     for idx in range(bcnn.N_LAYERS):
         hs.append(bcnn.apply_packed_layer(packed_cpu, idx, hs[-1],
                                           plan=cpu_plan))
     logits_cpu = hs[-1].numpy()
     check(logits_cpu.shape == (N_REQUESTS, 10)
           and np.isfinite(logits_cpu).all(), "CPU logits malformed")
+    return x_np, packed_cpu, hs, logits_cpu
+
+
+def serve(eng, x_np, logits_cpu, tag: str):
+    """Serve ``x_np`` through ``eng`` (warmed up by the caller); hold the
+    logits against the CPU port (allclose 1e-5, equal argmax). Returns
+    the number of forwards."""
+    steps0 = eng.steps_executed
+    t0 = time.perf_counter()
+    rids = [eng.submit(img) for img in x_np]
+    out = eng.run()
+    dt = time.perf_counter() - t0
+    check(sorted(out) == sorted(rids), f"[{tag}] requests lost")
+    logits = np.stack([out[r] for r in rids])
+    check(np.isfinite(logits).all() and logits.shape == (N_REQUESTS, 10),
+          f"[{tag}] served logits malformed")
+    check(np.allclose(logits, logits_cpu, rtol=1e-5, atol=1e-5),
+          f"[{tag}] served logits differ from the CPU port: max "
+          f"{np.abs(logits - logits_cpu).max():.3g}")
+    check((logits.argmax(1) == logits_cpu.argmax(1)).all(),
+          f"[{tag}] argmax differs from the CPU port")
+    st = eng.stats(last_n=N_REQUESTS)
+    print(f"[{tag}] served {st['n']} requests through {N_SLOTS} slots "
+          f"in {dt * 1e3:.1f} ms: latency p50 {st['p50'] * 1e3:.3f} ms, "
+          f"p99 {st['p99'] * 1e3:.3f} ms, {st['throughput']:.1f} img/s; "
+          f"logits max |gpu - cpu| {np.abs(logits - logits_cpu).max():.3g}")
+    return eng.steps_executed - steps0
+
+
+def serve_phase(reference) -> dict:
+    """Phase 3: serve on the card through both kernel paths, unfused and
+    fused; hold the results against the port on the CPU
+    (``cpu_reference()``). Returns each kernel's launch count from its
+    path's serving run."""
+    from repro_torch.core import bcnn, bconv
+    from repro_torch.core import execution_plan as xp
+    from repro_torch.kernels import xnor_conv as kconv
+    from repro_torch.kernels import xnor_conv_fused as kfused
+    from repro_torch.kernels import xnor_matmul as kmm
+    from repro_torch.serve.bcnn_engine import BCNNEngine
+
+    counters = {"xnor_matmul_vpu": kmm.xnor_matmul_vpu,
+                "xnor_matmul_mxu": kmm.xnor_matmul_mxu,
+                "xnor_conv2d_vpu": kconv.xnor_conv2d_vpu,
+                "xnor_conv2d_mxu": kconv.xnor_conv2d_mxu,
+                "xnor_conv2d_pair_vpu": kfused.xnor_conv2d_pair_vpu,
+                "xnor_conv2d_pair_mxu": kfused.xnor_conv2d_pair_mxu}
+    x_np, packed_cpu, hs, logits_cpu = reference
+    x_cpu = hs[0]
 
     launches = {}
-    for path in ("mxu", "vpu"):
-        eng = BCNNEngine.from_packed(packed_cpu, n_slots=N_SLOTS, path=path,
-                                     device="cuda")
-        eng.warmup()
-        steps0 = eng.steps_executed
-        for fn in counters.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        rids = [eng.submit(img) for img in x_np]
-        out = eng.run()
-        dt = time.perf_counter() - t0
-        seen = {name: fn.launches for name, fn in counters.items()}
-        steps = eng.steps_executed - steps0
-        conv, mm = f"xnor_conv2d_{path}", f"xnor_matmul_{path}"
-        print(f"[{path}] launches over {steps} forwards: {seen}")
-        check(seen[conv] == 5 * steps and seen[mm] == 3 * steps,
-              f"[{path}] expected 5 conv and 3 matmul launches per forward")
-        check(all(v == 0 for k, v in seen.items() if k not in (conv, mm)),
-              f"[{path}] the other path's kernels launched")
-        launches[conv], launches[mm] = seen[conv], seen[mm]
-        check(sorted(out) == sorted(rids), f"[{path}] requests lost")
-        logits = np.stack([out[r] for r in rids])
-        check(np.isfinite(logits).all() and logits.shape == (N_REQUESTS, 10),
-              f"[{path}] served logits malformed")
-        check(np.allclose(logits, logits_cpu, rtol=1e-5, atol=1e-5),
-              f"[{path}] served logits differ from the CPU port: max "
-              f"{np.abs(logits - logits_cpu).max():.3g}")
-        check((logits.argmax(1) == logits_cpu.argmax(1)).all(),
-              f"[{path}] argmax differs from the CPU port")
-        st = eng.stats(last_n=N_REQUESTS)
-        print(f"[{path}] served {st['n']} requests through {N_SLOTS} slots "
-              f"in {dt * 1e3:.1f} ms: latency p50 {st['p50'] * 1e3:.3f} ms, "
-              f"p99 {st['p99'] * 1e3:.3f} ms, {st['throughput']:.1f} img/s; "
-              f"logits max |gpu - cpu| {np.abs(logits - logits_cpu).max():.3g}")
+    for fusion in (False, True):
+        for path in ("mxu", "vpu"):
+            tag = f"{path}{' fused' if fusion else ''}"
+            eng = BCNNEngine.from_packed(packed_cpu, n_slots=N_SLOTS,
+                                         path=path, conv_fusion=fusion,
+                                         device="cuda")
+            eng.warmup()
+            for fn in counters.values():
+                fn.launches = 0
+            steps = serve(eng, x_np, logits_cpu, tag)
+            seen = {name: fn.launches for name, fn in counters.items()}
+            print(f"[{tag}] launches over {steps} forwards: {seen}")
+            want = {f"xnor_conv2d_{path}": (1 if fusion else 5) * steps,
+                    f"xnor_matmul_{path}": 3 * steps}
+            if fusion:
+                want[f"xnor_conv2d_pair_{path}"] = 2 * steps
+            check(all(seen[k] == v for k, v in want.items()),
+                  f"[{tag}] expected {want} launches")
+            check(all(v == 0 for k, v in seen.items() if k not in want),
+                  f"[{tag}] a kernel of another path launched")
+            for k in want:
+                if k not in launches or "pair" in k:
+                    launches[k] = seen[k]
 
-        packed_gpu = eng.forward.packed
-        for strategy in ("direct", "im2col"):
-            plan = xp.build_plan(packed_gpu, path=path,
-                                 conv_strategy=strategy, device="cuda")
-            for idx in range(1, bcnn.N_LAYERS):
-                got = bcnn.apply_packed_layer(
-                    packed_gpu, idx, hs[idx].cuda(), plan=plan).cpu()
-                want = hs[idx + 1]
-                if idx == bcnn.N_LAYERS - 1:
-                    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
-                          f"[{path}/{strategy}] FC-3 logits differ")
-                else:
-                    check(torch.equal(got, want),
-                          f"[{path}/{strategy}] layer {idx} output differs "
-                          f"from the CPU port")
-            print(f"[{path}/{strategy}] layers 1..8 each fed the CPU input: "
-                  f"bits exact, FC-3 logits allclose")
-        layer_ms = [time_ms(lambda i=i, h=hs[i][:N_SLOTS].cuda():
-                            bcnn.apply_packed_layer(packed_gpu, i, h,
-                                                    plan=eng.plan), reps=20)
-                    for i in range(bcnn.N_LAYERS)]
-        print(f"[{path}] per-layer ms per call at batch {N_SLOTS} "
-              f"(CONV-1..FC-3, CUDA events): "
-              + ", ".join(f"{t:.4f}" for t in layer_ms))
-        print(f"[{path}] profile of the served forward at batch {N_SLOTS}:")
-        profile_forward(eng.forward, x_cpu[:N_SLOTS].cuda())
+            packed_gpu = eng.forward.packed
+            if fusion:
+                for pair in ((2, 3), (4, 5)):
+                    got = bcnn.apply_packed_group(
+                        packed_gpu, pair, hs[pair[0]].cuda(),
+                        plan=eng.plan).cpu()
+                    check(torch.equal(got, hs[pair[1] + 1]),
+                          f"[{tag}] fused group {pair} differs from the "
+                          f"CPU port")
+                print(f"[{tag}] fused groups (2, 3) and (4, 5) fed the CPU "
+                      f"input at tiles {list(eng.plan.group_tiles)}: bits "
+                      f"exact")
+            else:
+                for strategy in ("direct", "im2col"):
+                    plan = xp.build_plan(packed_gpu, path=path,
+                                         conv_strategy=strategy,
+                                         device="cuda")
+                    for idx in range(1, bcnn.N_LAYERS):
+                        got = bcnn.apply_packed_layer(
+                            packed_gpu, idx, hs[idx].cuda(), plan=plan).cpu()
+                        want_h = hs[idx + 1]
+                        if idx == bcnn.N_LAYERS - 1:
+                            check(torch.allclose(got, want_h, rtol=1e-5,
+                                                 atol=1e-5),
+                                  f"[{tag}/{strategy}] FC-3 logits differ")
+                        else:
+                            check(torch.equal(got, want_h),
+                                  f"[{tag}/{strategy}] layer {idx} output "
+                                  f"differs from the CPU port")
+                    print(f"[{tag}/{strategy}] layers 1..8 each fed the CPU "
+                          f"input: bits exact, FC-3 logits allclose")
+                layer_ms = [time_ms(lambda i=i, h=hs[i][:N_SLOTS].cuda():
+                                    bcnn.apply_packed_layer(
+                                        packed_gpu, i, h, plan=eng.plan),
+                                    reps=20)
+                            for i in range(bcnn.N_LAYERS)]
+                print(f"[{tag}] per-layer ms per call at batch {N_SLOTS} "
+                      f"(CONV-1..FC-3, CUDA events): "
+                      + ", ".join(f"{t:.4f}" for t in layer_ms))
+            print(f"[{tag}] profile of the served forward at batch "
+                  f"{N_SLOTS}:")
+            profile_forward(eng.forward, x_cpu[:N_SLOTS].cuda())
 
     z_cpu = bconv.fpconv_apply(packed_cpu.conv1, x_cpu, binarize_out=False)
     z_gpu = bconv.fpconv_apply(packed_gpu.conv1, x_cpu.cuda(),
@@ -450,6 +575,66 @@ def serve_phase() -> dict:
           f"{(z_gpu - z_cpu).abs().max().item():.3g}")
     print(f"card: {smi('name,power.limit')}")
     return launches
+
+
+def tune_phase(reference) -> None:
+    """Phase 4: tune the plan on the card twice and require the two plans
+    to agree and every candidate to be bit-exact; export the plan in an
+    artifact, reload it as the cached plan and serve with it against the
+    CPU port (``cpu_reference()``)."""
+    import tempfile
+
+    from repro_torch.core import bcnn_artifact
+    from repro_torch.core import execution_plan as xp
+    from repro_torch.kernels import autotune as at
+    from repro_torch.serve.bcnn_engine import BCNNEngine
+
+    def ms(score):
+        return "-" if score is None else (f"{score[0] * 1e3:.4f} ± "
+                                          f"{score[1] * 1e3:.4f}")
+
+    x_np, packed_cpu, _, logits_cpu = reference
+    plans = []
+    for run in (1, 2):
+        report = {}
+        t0 = time.perf_counter()
+        plan = at.autotune_packed(packed_cpu, device="cuda", batch=N_SLOTS,
+                                  report=report)
+        dt = time.perf_counter() - t0
+        totals = {p: ms(t) for p, t in report["path_totals"].items()}
+        print(f"[tune {run}] {report['n_candidates']} candidates, "
+              f"{report['n_eligible']} eligible, in {dt:.1f} s; path "
+              f"totals (device ms, sum of per-layer medians ± spreads at "
+              f"batch {N_SLOTS}): {totals}")
+        print(f"[tune {run}] fusion {'on' if plan.conv_fusion else 'off'} "
+              f"(fused pairs {ms(report['fused_s'])} ms vs sequential "
+              f"{ms(report['sequential_s'])} ms); plan "
+              f"{json.dumps(xp.plan_to_dict(plan))}")
+        check(report["n_eligible"] == report["n_candidates"],
+              "a tuner candidate was not bit-exact with the CPU path")
+        check(report["key"]["backend"] == "cuda", "tuner key not cuda")
+        plans.append(plan)
+    for row in report["candidates"]:
+        print(f"  {row['candidate']}: "
+              f"{ms((row['median_s'], row['spread_s']))} ms")
+    check(plans[0] == plans[1], f"two tunings chose different plans: "
+          f"{plans[0]} vs {plans[1]}")
+    print("[tune] the two tunings chose the same plan")
+    with tempfile.TemporaryDirectory() as tmp:
+        bcnn_artifact.save_packed(
+            tmp, packed_cpu, tuning=at.tuning_section(packed_cpu, plan),
+            provenance={"exported_by": "chip_smoke"})
+        loaded = bcnn_artifact.load_packed(tmp)
+        cached, source = at.plan_for_host(
+            loaded, bcnn_artifact.load_tuning(tmp), "cuda")
+    check(source == "cached" and cached == plan,
+          f"exported plan reloaded as {source!r}, not the cached plan")
+    print(f"[tune] artifact reloaded: plan source {source!r}, key "
+          f"{xp.plan_key_fingerprint(report['key'])} {report['key']}")
+    eng = BCNNEngine.from_packed(loaded, n_slots=N_SLOTS, plan=cached,
+                                 device="cuda")
+    eng.warmup()
+    serve(eng, x_np, logits_cpu, "tuned")
 
 
 def main() -> int:
@@ -467,7 +652,9 @@ def main() -> int:
           f"{sys.version.split()[0]}")
     build_phase()
     stats = kernel_phase(Bound())
-    launches = serve_phase()
+    reference = cpu_reference()
+    launches = serve_phase(reference)
+    tune_phase(reference)
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         s = stats[name]

@@ -4,6 +4,9 @@ constants the port's serving slice reads (counterpart of
 from __future__ import annotations
 
 from repro_torch.core.bcnn import CONV_SPECS, FC_SPECS          # noqa: F401
+# Binary-conv dataflow ("auto" = direct when C % 32 == 0) and cross-layer
+# fusion of CONV-3/4 and CONV-5/6 into the K5 kernel (opt-in: bit-exact,
+# flip with launch/serve_bcnn.py --conv-fusion or a tuned plan).
 from repro_torch.core.bconv import (                            # noqa: F401
     DEFAULT_CONV_FUSION as CONV_FUSION,
     DEFAULT_CONV_STRATEGY as CONV_STRATEGY)

@@ -14,7 +14,8 @@
 ``forward_packed`` is the deployment forward: packed int32 weights and
 fused eq. 8 comparators through ``kernels/ops.py`` — on the card the five
 binary convs launch the direct conv kernel (K3/K4) and the three FCs the
-XNOR matmul (K1/K2). Weight tensors are plain PyTorch tensors in
+XNOR matmul (K1/K2); with conv fusion on, CONV-3/4 and CONV-5/6 run as
+two fused pairs (K5) instead. Weight tensors are plain PyTorch tensors in
 NamedTuples; ``packed_to`` moves a whole net to a device.
 """
 from __future__ import annotations
@@ -194,28 +195,54 @@ def apply_packed_layer(packed: BCNNPacked, idx: int, h: torch.Tensor, *,
 def plan_layer_groups(start: int = 0, stop: int = N_LAYERS, *,
                       conv_fusion: bool | None = None
                       ) -> tuple[tuple[int, ...], ...]:
-    """Partition layers [start, stop) into execution groups: singletons,
-    since the fused conv-pair kernel is not ported yet."""
-    if conv_fusion:
-        raise NotImplementedError(
-            "conv_fusion: the fused conv-pair kernel (K5, "
-            "repro/kernels/xnor_conv_fused.py) is not ported yet — ROADMAP "
-            "queue 1, item 'K5 with apply_packed_pair and fusion in the "
-            "plan'")
-    return tuple((i,) for i in range(start, stop))
+    """Partition layers [start, stop) into execution groups.
+
+    With ``conv_fusion`` off (None → ``bconv.DEFAULT_CONV_FUSION``) every
+    group is a singleton. With it on, consecutive binary convs at the same
+    resolution — the first member does not pool — pair into one fused
+    call: CONV-3/4 (16×16) and CONV-5/6 (8×8) in Table 2. A pooling layer
+    only ends a group (its pool runs in the kernel's epilogue), and no
+    group crosses [start, stop), the stage-cut contract of the reference's
+    pipelined forward. Returns index tuples partitioning
+    ``range(start, stop)`` in order.
+    """
+    fusion = (bconv.DEFAULT_CONV_FUSION if conv_fusion is None
+              else bool(conv_fusion))
+    groups = []
+    i = start
+    while i < stop:
+        if (fusion and 1 <= i < 5 and i + 1 < stop
+                and not CONV_SPECS[i][2]):
+            groups.append((i, i + 1))
+            i += 2
+        else:
+            groups.append((i,))
+            i += 1
+    return tuple(groups)
 
 
 def apply_packed_group(packed: BCNNPacked, group: tuple[int, ...],
                        h: torch.Tensor, *, path: str = "mxu",
                        conv_strategy: str | None = None,
                        plan=None) -> torch.Tensor:
-    """Apply one ``plan_layer_groups`` group (a single layer)."""
-    if len(group) != 1:
-        raise NotImplementedError(
-            f"group {group}: fused conv pairs need the K5 kernel, not "
-            f"ported yet (ROADMAP queue 1)")
-    return apply_packed_layer(packed, group[0], h, path=path,
-                              conv_strategy=conv_strategy, plan=plan)
+    """Apply one ``plan_layer_groups`` group: a singleton through
+    ``apply_packed_layer``, an (i, i+1) pair through the fused
+    ``bconv.apply_packed_pair`` — bit-exact with the two layers in turn.
+    With a ``plan`` the path, the strategy of a singleton and the pair's
+    (th, tw) tile come from it."""
+    if len(group) == 1:
+        return apply_packed_layer(packed, group[0], h, path=path,
+                                  conv_strategy=conv_strategy, plan=plan)
+    i, j = group
+    if j != i + 1 or not 1 <= i < j <= 5:
+        raise ValueError(f"not a fusible binary-conv pair: {group}")
+    tiles = None
+    if plan is not None:
+        path = plan.path
+        tiles = plan.tiles_for(i)
+    return bconv.apply_packed_pair(packed.convs[i - 1], packed.convs[j - 1],
+                                   h, maxpool_b=CONV_SPECS[j][2], path=path,
+                                   tiles=tiles)
 
 
 def forward_packed(packed: BCNNPacked, x01: torch.Tensor,
@@ -233,7 +260,8 @@ def forward_packed(packed: BCNNPacked, x01: torch.Tensor,
         from repro_torch.core import execution_plan
         plan = execution_plan.build_plan(
             packed, path=path, conv_strategy=conv_strategy,
-            conv_fusion=conv_fusion, device=x01.device)
+            conv_fusion=conv_fusion, device=x01.device,
+            input_hw=tuple(x01.shape[1:3]))
     h = x01
     for group in plan_layer_groups(conv_fusion=plan.conv_fusion):
         h = apply_packed_group(packed, group, h, plan=plan)
@@ -242,7 +270,9 @@ def forward_packed(packed: BCNNPacked, x01: torch.Tensor,
 
 class PackedForward:
     """The packed forward bound to one device and one plan: a plain
-    ``(N, 32, 32, 3) float32 → (N, 10) float32`` callable.
+    ``(N, 32, 32, 3) float32 → (N, 10) float32`` callable. The plan fixes
+    every kernel choice: path, per-layer strategy, fusion of the conv
+    pairs and their tiles (``core/execution_plan.py``).
 
     Unlike the reference's self-jitting forward it has no compile cache
     and no weight hot-swap: PyTorch runs eagerly, and CUDA-graph capture

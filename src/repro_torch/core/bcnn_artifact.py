@@ -1,21 +1,29 @@
-"""Reader of the packed-BCNN deployment artifact (counterpart of the
-reading half of ``repro/core/bcnn_artifact.py``; the writer comes with
-training).
+"""The packed-BCNN deployment artifact (counterpart of
+``repro/core/bcnn_artifact.py``): writer, reader and the tuning section.
 
 An artifact is one directory: ``manifest.json`` (format name, version,
 per-leaf shape / dtype / CRC32 for arrays, the static leaves k / fh / fw /
-fc3_k / BN eps by value, the name of the live weights file) and that
-``weights-*.npz``. ``load_packed`` checks the format, accepts versions
-``MIN_VERSION..VERSION``, verifies every array's CRC32 before anything is
-built, and returns the port's ``BCNNPacked`` on the CPU; any mismatch
-raises ``ArtifactError``. ``packed_from_numpy`` is the step that carries
-weights across: it builds the net from leaves keyed as the reference's
-``_walk`` keys them.
+fc3_k / BN eps by value, the name of the live weights file, provenance and
+an optional ``tuning`` section) and that ``weights-*.npz``.
+
+* ``save_packed`` writes one with the reference's commit protocol: a
+  fresh weights file first, then the atomic rename of the manifest as the
+  single commit point; the reference's ``load_packed`` reads it leaf for
+  leaf.
+* ``load_packed`` checks the format, accepts versions
+  ``MIN_VERSION..VERSION``, verifies every array's CRC32 before anything
+  is built, and returns the port's ``BCNNPacked`` on the CPU; any mismatch
+  raises ``ArtifactError``. ``packed_from_numpy`` builds the net from
+  leaves keyed as ``walk`` keys them.
+* ``load_tuning`` returns the tuned plan's payload ``{"key", "plan"}``
+  (``kernels/autotune.py::plan_for_host`` decides whether it applies).
 """
 from __future__ import annotations
 
 import json
 import os
+import time
+import zlib
 from typing import Any
 
 import numpy as np
@@ -27,9 +35,11 @@ from repro_torch.core.crc import crc32_array
 from repro_torch.core.normbinarize import BNParams, NBThreshold
 
 FORMAT = "bcnn-packed"
-VERSION = 2
+VERSION = 2                      # 2: optional "tuning" section
 MIN_VERSION = 1
+TUNING_VERSION = 1               # schema of the "tuning" section itself
 MANIFEST = "manifest.json"
+WEIGHTS_PREFIX = "weights-"      # one uniquely named npz per save
 
 
 class ArtifactError(RuntimeError):
@@ -56,6 +66,111 @@ def load_manifest(path: str) -> dict:
                             f"(reader supports {MIN_VERSION}..{VERSION}) "
                             f"at {path!r}")
     return manifest
+
+
+def _npz_key(key: str) -> str:
+    # '/'-separated keys would become nested zip members inside an npz
+    return key.replace("/", ".")
+
+
+def _tuning_crc(tuning: dict) -> int:
+    """CRC32 over the canonical JSON of the tuning payload, so a
+    hand-edited or corrupted plan is rejected."""
+    blob = json.dumps({"key": tuning["key"], "plan": tuning["plan"]},
+                      sort_keys=True, separators=(",", ":"))
+    return zlib.crc32(blob.encode("utf-8"))
+
+
+def save_packed(path: str, packed: BCNNPacked, *,
+                provenance: dict | None = None,
+                tuning: dict | None = None) -> str:
+    """Write ``packed`` as a versioned artifact directory at ``path``;
+    returns the manifest path.
+
+    ``provenance``: caller fields recorded beside the fold entry point,
+    the torch version and the creation time. ``tuning``: an optional
+    ``kernels/autotune.py::tuning_section`` payload, stored with its
+    schema version and CRC.
+
+    Commit protocol: the arrays land in a new uniquely named npz first;
+    the atomic rename of the manifest, which names that npz, is the single
+    commit point, so a crash leaves the old artifact or the new one, never
+    a mix. The previous generation's weights file is kept (a reader that
+    already holds the old manifest can finish); older ones and aborted
+    saves are removed by the next successful save.
+    """
+    os.makedirs(path, exist_ok=True)
+    arrays: dict[str, np.ndarray] = {}
+    leaves: dict[str, Any] = {}
+    for key, leaf in walk(packed):
+        if leaf is None:
+            leaves[key] = {"kind": "none"}
+        elif isinstance(leaf, torch.Tensor):
+            arr = leaf.detach().cpu().numpy()
+            arrays[_npz_key(key)] = arr
+            leaves[key] = {"kind": "array", "npz": _npz_key(key),
+                           "shape": list(arr.shape),
+                           "dtype": str(arr.dtype), "crc": crc32_array(arr)}
+        else:
+            leaves[key] = {"kind": "static", "value": leaf,
+                           "type": type(leaf).__name__}
+    weights_file = f"{WEIGHTS_PREFIX}{time.time_ns():016x}.npz"
+    manifest = {
+        "format": FORMAT, "version": VERSION,
+        "weights_file": weights_file,
+        "structure": {"n_convs": len(packed.convs),
+                      "n_fcs": len(packed.fcs)},
+        "leaves": leaves,
+        "provenance": {"fold": "core/bcnn.py::fold_model",
+                       "torch": torch.__version__,
+                       "created_unix": time.time(),
+                       **(provenance or {})},
+    }
+    if tuning is not None:
+        manifest["tuning"] = {"tuning_version": TUNING_VERSION,
+                              "key": tuning["key"], "plan": tuning["plan"],
+                              "crc": _tuning_crc(tuning)}
+    mpath = os.path.join(path, MANIFEST)
+    prev_weights = None
+    try:
+        with open(mpath) as f:
+            prev_weights = json.load(f).get("weights_file")
+    except (OSError, json.JSONDecodeError):
+        pass                            # no (readable) previous generation
+    with open(os.path.join(path, weights_file), "wb") as f:
+        np.savez(f, **arrays)
+        f.flush()
+        os.fsync(f.fileno())
+    with open(mpath + ".tmp", "w") as f:
+        json.dump(manifest, f, indent=1)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(mpath + ".tmp", mpath)
+    for fname in os.listdir(path):
+        if fname.startswith(WEIGHTS_PREFIX) and \
+                fname not in (weights_file, prev_weights):
+            try:
+                os.remove(os.path.join(path, fname))
+            except OSError:
+                pass                    # a concurrent cleaner got there
+    return mpath
+
+
+def load_tuning(path_or_manifest) -> dict | None:
+    """The tuning payload ``{"key", "plan"}`` of an artifact directory or
+    an already loaded manifest; None when there is no section or its
+    schema is newer than this reader. A CRC mismatch raises
+    ``ArtifactError``."""
+    manifest = (path_or_manifest if isinstance(path_or_manifest, dict)
+                else load_manifest(path_or_manifest))
+    tuning = manifest.get("tuning")
+    if tuning is None or tuning.get("tuning_version") != TUNING_VERSION:
+        return None
+    payload = {"key": tuning.get("key"), "plan": tuning.get("plan")}
+    if _tuning_crc(payload) != tuning.get("crc"):
+        raise ArtifactError("tuning section CRC mismatch — corrupt or "
+                            "hand-edited plan; refusing to use it")
+    return payload
 
 
 def walk(packed: BCNNPacked):

@@ -1,5 +1,6 @@
 """Binary 2-D convolution, deployment half (counterpart of
-``repro/core/bconv.py``): fold, the two packed dataflows and CONV-1.
+``repro/core/bconv.py``): fold, the two packed dataflows, the fused conv
+pair and CONV-1.
 
 * ``"direct"`` — ``kernels/ops.py::xnor_conv2d``: the channel-packed image
   goes straight through the direct conv kernel (K3/K4 on the card), which
@@ -8,9 +9,13 @@
   reuse the XNOR matmul (K1/K2 on the card).
 * ``"auto"`` — ``direct`` when the channel count is 32-aligned, else
   ``im2col``.
+* ``apply_packed_pair`` — two convs in one fused call
+  (``kernels/ops.py::xnor_conv2d_pair``, K5 on the card): the bit map
+  between them never leaves the kernel. Bit-identical to two
+  ``apply_packed`` calls under either strategy.
 
 Layout: NHWC bit maps; im2col packs the flat (FH·FW·C) reduction, the
-direct kernel packs per filter position (O, FH·FW·ceil(C/32)).
+direct and fused kernels pack per filter position (O, FH·FW·ceil(C/32)).
 """
 from __future__ import annotations
 
@@ -29,9 +34,11 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.xnor_conv import pack_conv_weights
 
 DEFAULT_CONV_STRATEGY = "auto"   # "auto" | "direct" | "im2col"
-# Cross-layer conv-pair fusion is not ported yet (ROADMAP queue 1); the
-# deployment forward runs every conv on its own, as the reference does by
-# default.
+# Cross-layer conv-pair fusion (``apply_packed_pair``, planned by
+# core/bcnn.py::plan_layer_groups) is opt-in, as in the reference: the
+# forward runs every conv on its own unless a plan turns fusion on
+# (``conv_fusion=True``, launch/serve_bcnn.py --conv-fusion, or a tuned
+# plan). Fusion is bit-exact, so it changes only the dataflow.
 DEFAULT_CONV_FUSION = False
 
 
@@ -127,6 +134,35 @@ def apply_packed(fp: BConvPacked, a_bits: torch.Tensor, *,
                                                       w // 2, 2, c)
     return torch.where(fp.thr.flip[None, None, None, :],
                        win.amin(dim=(2, 4)), win.amax(dim=(2, 4)))
+
+
+def apply_packed_pair(fa: BConvPacked, fb: BConvPacked,
+                      a_bits: torch.Tensor, *, maxpool_b: bool = False,
+                      path: str = "mxu",
+                      tiles: tuple[int, int] | None = None) -> torch.Tensor:
+    """Fused pair of packed binary convs: conv A → NormBinarize → conv B →
+    NormBinarize → optional trailing 2×2 bit pool, in one call.
+
+    Bit-exact with ``apply_packed(fa, ...)`` then ``apply_packed(fb, ...,
+    maxpool=maxpool_b)`` for either strategy: the fused kernel is its own
+    direct-style dataflow. Needs the per-position weight layouts and
+    32-aligned channel counts. ``tiles``: the (th, tw) output tile of the
+    fused launch from an ``ExecutionPlan`` (None: ``pick_tiles``).
+    """
+    c = a_bits.shape[-1]
+    if fa.w_words_hw is None or fb.w_words_hw is None:
+        raise ValueError(
+            "fused conv pair needs the per-position weight layout; these "
+            "BConvPacked predate it — re-fold() the params")
+    oa = fa.w_words_hw.shape[0]
+    if c % bitpack.PACK or oa % bitpack.PACK:
+        raise ValueError(
+            f"fused conv pair needs 32-aligned channels, got C={c}, OA={oa}")
+    return ops.xnor_conv2d_pair(
+        a_bits, fa.w_words_hw, fb.w_words_hw, ka=fa.k, kb=fb.k,
+        fha=fa.fh, fwa=fa.fw, fhb=fb.fh, fwb=fb.fw, pool_b=maxpool_b,
+        thr_a_c=fa.thr.c, thr_a_flip=fa.thr.flip,
+        thr_b_c=fb.thr.c, thr_b_flip=fb.thr.flip, path=path, tiles=tiles)
 
 
 def fpconv_apply(p: FpConvParams, x01: torch.Tensor, *,

@@ -30,11 +30,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_void_p, or ctypes would pass them as 32-bit ints and cut them
 _MATMUL_ARGS = [_P] * 5 + [_I] * 4 + [_P]
 _CONV_ARGS = [_P] * 5 + [_I] * 13 + [_P]
+# a, wa, ca, fa, wb, cb, fb, out, <ints>, stream
+_PAIR_ARGS = [_P] * 8 + [_I] * 15 + [_P]
 SIGNATURES = {
     "xnor_matmul_vpu": _MATMUL_ARGS,
     "xnor_matmul_mxu": _MATMUL_ARGS,
     "xnor_conv2d_vpu": _CONV_ARGS,
     "xnor_conv2d_mxu": _CONV_ARGS,
+    "xnor_conv2d_pair_vpu": _PAIR_ARGS,
+    "xnor_conv2d_pair_mxu": _PAIR_ARGS,
 }
 
 

@@ -7,8 +7,8 @@ Dispatch is by the tensor's device:
 * CPU tensor — every ``path`` runs the plain PyTorch version
   (``kernels/ref.py``), as the reference runs Pallas in interpret mode
   off the TPU.
-* CUDA tensor — ``"vpu"`` launches K1/K3 (XNOR + popcount on the CUDA
-  cores), ``"mxu"`` launches K2/K4 (±1 int8 on the tensor cores), and
+* CUDA tensor — ``"vpu"`` launches K1/K3/K5 (XNOR + popcount on the CUDA
+  cores), ``"mxu"`` launches K2/K4/K5 (±1 int8 on the tensor cores), and
   ``"xla"`` raises: the plain version is reached on the card only by
   calling ``kernels/ref.py`` directly. No ``try`` falls back from a kernel.
 
@@ -24,6 +24,7 @@ import torch
 from repro_torch.core import bitpack
 from repro_torch.kernels import ref
 from repro_torch.kernels import xnor_conv as kconv
+from repro_torch.kernels import xnor_conv_fused as kfused
 from repro_torch.kernels import xnor_matmul as kmm
 
 PATHS = ("vpu", "mxu", "xla")
@@ -117,3 +118,65 @@ def xnor_conv2d(a_bits: torch.Tensor, w_words: torch.Tensor, *, k: int,
     if thr_c is not None:
         y = ref.norm_binarize_ref(y, thr_c, thr_flip)
     return y
+
+
+def xnor_conv2d_pair(a_bits: torch.Tensor, wa_words: torch.Tensor,
+                     wb_words: torch.Tensor, *, ka: int, kb: int,
+                     fha: int, fwa: int, fhb: int, fwb: int,
+                     pool_b: bool = False,
+                     thr_a_c: torch.Tensor, thr_a_flip: torch.Tensor,
+                     thr_b_c: torch.Tensor, thr_b_flip: torch.Tensor,
+                     path: str = "mxu",
+                     tiles: tuple[int, int] | None = None) -> torch.Tensor:
+    """Fused pair of same-resolution binary convs: conv A → eq. 8 → conv B
+    → eq. 8 (→ 2×2 pool on bits when ``pool_b``), bit-identical to two
+    ``xnor_conv2d`` calls and the flip-aware pool. Both convs are stride-1
+    SAME with odd filters and −1 (bit 0) padding.
+
+    a_bits:   (N, H, W, C) {0,1} int8, C % 32 == 0 on "vpu"/"mxu"
+    wa_words: (OA, FHa·FWa·C/32) int32 per-position packed, OA % 32 == 0
+    wb_words: (OB, FHb·FWb·OA/32) int32 per-position packed
+    ka/kb:    true reduction lengths (FH·FW·C)
+    Returns (N, HO, WO, OB) {0,1} int8, HO = H//2 when ``pool_b`` else H.
+    On the card "vpu"/"mxu" launch K5 once with the (th, tw) output tile
+    ``tiles`` (None: ``kernels/xnor_conv_fused.py::pick_tiles``); tiles
+    never change bits. On a CPU tensor every path runs the plain version
+    (``kernels/ref.py::xnor_conv2d_pair_ref``).
+    """
+    _check_path(path, a_bits)
+    if any(f % 2 == 0 for f in (fha, fwa, fhb, fwb)):
+        raise ValueError("fused pair supports odd SAME filters only")
+    n, h, w, c = a_bits.shape
+    oa, la = wa_words.shape
+    ob, lb = wb_words.shape
+    pf = 2 if pool_b else 1
+    if path != "xla" and (c % bitpack.PACK or oa % bitpack.PACK
+                          or h % pf or w % pf):
+        raise ValueError(f"the fused kernel needs C % 32 == 0 (C={c}), "
+                         f"OA % 32 == 0 (OA={oa}) and a map divisible by "
+                         f"the pool ({h}x{w}, pool={pool_b})")
+    thr_a_c, thr_a_flip = _thr(thr_a_c, thr_a_flip)
+    thr_b_c, thr_b_flip = _thr(thr_b_c, thr_b_flip)
+    if a_bits.is_cuda:
+        if tiles is None:
+            tiles = kfused.pick_tiles(
+                h // pf, w // pf, pf=pf, fha=fha, fwa=fwa,
+                cwa=c // bitpack.PACK, fhb=fhb, fwb=fwb, oa=oa)
+        fn = (kfused.xnor_conv2d_pair_vpu if path == "vpu"
+              else kfused.xnor_conv2d_pair_mxu)
+        return fn(bitpack.pack_bits(a_bits), wa_words.contiguous(),
+                  wb_words.contiguous(), ka=ka, kb=kb, fha=fha, fwa=fwa,
+                  fhb=fhb, fwb=fwb, pool=pool_b, thr_a_c=thr_a_c,
+                  thr_a_flip=thr_a_flip, thr_b_c=thr_b_c,
+                  thr_b_flip=thr_b_flip, th=tiles[0], tw=tiles[1])
+    kwa, kwb = bitpack.packed_len(c), bitpack.packed_len(oa)
+    if la != fha * fwa * kwa or lb != fhb * fwb * kwb:
+        raise ValueError(f"filters carry {la} / {lb} words per output; "
+                         f"C={c}, OA={oa} need {fha * fwa * kwa} / "
+                         f"{fhb * fwb * kwb}")
+    wa_bits = bitpack.unpack_bits(wa_words.reshape(oa, fha, fwa, kwa))
+    wb_bits = bitpack.unpack_bits(wb_words.reshape(ob, fhb, fwb, kwb))
+    return ref.xnor_conv2d_pair_ref(
+        a_bits, wa_bits[..., :c], wb_bits[..., :oa], thr_a_c=thr_a_c,
+        thr_a_flip=thr_a_flip, thr_b_c=thr_b_c, thr_b_flip=thr_b_flip,
+        pool_b=pool_b)

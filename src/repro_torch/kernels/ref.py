@@ -7,7 +7,8 @@ and what ``chip_smoke.py`` holds the CUDA kernels against on the card.
 Each computes the ±1 dot product as a float32 matrix product of the
 unpacked operands. That is exact while every partial sum stays below
 2**24 in magnitude; the largest reduction on the Table 2 path is
-k = 8192 (FC-1). On a CUDA tensor the product goes to cuBLAS, so a caller
+k = 8192 (FC-1). ``xnor_conv2d_pair_ref`` is the fused pair (K5) as two
+of those convs. On a CUDA tensor the product goes to cuBLAS, so a caller
 there keeps float32 accumulation: ``chip_smoke.py`` turns TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, the PyTorch default)
 before it calls these.
@@ -65,3 +66,30 @@ def xnor_conv2d_ref(a_bits: torch.Tensor, w_bits: torch.Tensor, *,
     patches = torch.cat(cols, dim=-1).reshape(-1, k)   # (dy, dx, c) order
     dot = patches @ bitpack.decode_pm1(w_bits).reshape(o, k).T
     return ((dot + k) / 2).to(torch.int32).reshape(n, ho, wo, o)
+
+
+def xnor_conv2d_pair_ref(a_bits: torch.Tensor, wa_bits: torch.Tensor,
+                         wb_bits: torch.Tensor, *, thr_a_c: torch.Tensor,
+                         thr_a_flip: torch.Tensor, thr_b_c: torch.Tensor,
+                         thr_b_flip: torch.Tensor,
+                         pool_b: bool = False) -> torch.Tensor:
+    """The fused conv pair as two calls: conv A → eq. 8 → conv B → eq. 8
+    → optional 2×2 pool on bits (max where B's flip is 0, min where it is
+    1). Both convs are stride 1, SAME, with −1 (bit 0) padding.
+
+    a_bits (N, H, W, C), wa_bits (OA, FHa, FWa, C), wb_bits (OB, FHb,
+    FWb, OA), all {0,1}. Returns (N, HO, WO, OB) {0,1} int8.
+    """
+    fha, fwa = wa_bits.shape[1:3]
+    fhb, fwb = wb_bits.shape[1:3]
+    y = xnor_conv2d_ref(a_bits, wa_bits, pad=(fha // 2, fwa // 2))
+    bits = norm_binarize_ref(y, thr_a_c, thr_a_flip)
+    y = xnor_conv2d_ref(bits, wb_bits, pad=(fhb // 2, fwb // 2))
+    out = norm_binarize_ref(y, thr_b_c, thr_b_flip)
+    if not pool_b:
+        return out
+    n, h, w, o = out.shape
+    win = out[:, :h // 2 * 2, :w // 2 * 2, :].reshape(n, h // 2, 2,
+                                                      w // 2, 2, o)
+    return torch.where(thr_b_flip.to(torch.bool)[None, None, None, :],
+                       win.amin(dim=(2, 4)), win.amax(dim=(2, 4)))

@@ -8,8 +8,19 @@ trained weights from a deployment artifact (``--artifact``, the format of
 through the slot engine (``serve/bcnn_engine.py``). Reports per-request
 latency percentiles and throughput.
 
+The kernel plan comes from the per-knob flags (``--path``,
+``--conv-strategy``, ``--conv-fusion``), or from the tuner: a cached plan
+in ``--tuning-cache`` or ``--artifact`` whose key matches this host is
+reused (``tuning: cache hit``), else ``--autotune`` measures one on the
+engine's device. ``--export-artifact DIR`` writes the served weights, and
+a measured plan as the artifact's ``tuning`` section.
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve_bcnn --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve_bcnn --device cuda \\
+        --conv-fusion --autotune --export-artifact build/bcnn_art
+    PYTHONPATH=src python -m repro_torch.launch.serve_bcnn --device cuda \\
+        --artifact build/bcnn_art --autotune   # reuses the stored plan
     PYTHONPATH=src python -m repro_torch.launch.serve_bcnn --rate 200 \\
         --slots 4 --requests 64        # Poisson arrivals at 200 req/s
     PYTHONPATH=src python -m repro_torch.launch.serve_bcnn --device cpu \\
@@ -28,6 +39,65 @@ from repro_torch.data.synthetic import SyntheticImages
 from repro_torch.serve.bcnn_engine import BCNNEngine, drive_poisson
 
 
+def resolve_plan(packed, args):
+    """``--autotune`` / ``--tuning-cache`` → the ExecutionPlan to serve
+    with, or None (no tuning flags: the engine builds the heuristic plan
+    from the per-knob flags).
+
+    Cache first: a usable ``tuning`` section in ``--tuning-cache`` (or,
+    failing that, ``--artifact``) whose key matches this host is reused
+    without measuring; only then does ``--autotune`` measure.
+    """
+    if not (args.autotune or args.tuning_cache):
+        return None
+    from repro_torch.core import bcnn_artifact
+    from repro_torch.core import execution_plan as xp
+    from repro_torch.kernels import autotune as at
+    tuning = None
+    for cache_dir in (args.tuning_cache, args.artifact):
+        if not cache_dir:
+            continue
+        try:
+            tuning = bcnn_artifact.load_tuning(cache_dir)
+        except bcnn_artifact.ArtifactError as e:
+            print(f"tuning: cache at {cache_dir} unusable ({e})")
+            tuning = None
+        if tuning is not None:
+            break
+    plan, source = at.plan_for_host(packed, tuning, args.device)
+    if source == "cached":
+        key = xp.plan_key_fingerprint(tuning["key"])
+        print(f"tuning: cache hit on key {key} — reusing the stored plan "
+              f"({plan.path} path, fusion "
+              f"{'on' if plan.conv_fusion else 'off'}) without re-measuring")
+    elif args.autotune:
+        report = {}
+        plan = at.autotune_packed(packed, device=args.device,
+                                  batch=args.slots, report=report)
+        print(f"tuning: measured {report['n_candidates']} candidate(s) "
+              f"({report['n_eligible']} eligible) → {plan.path} path, "
+              f"fusion {'on' if plan.conv_fusion else 'off'}, tiles "
+              f"{list(plan.group_tiles)}")
+    else:
+        print("tuning: no usable cached plan for this host — serving the "
+              "default heuristics (pass --autotune to measure)")
+    return plan
+
+
+def export_artifact(path, packed, plan, args) -> None:
+    """``--export-artifact``: persist the served weights and, when the
+    plan was measured, its ``tuning`` section."""
+    from repro_torch.core import bcnn_artifact
+    from repro_torch.kernels import autotune as at
+    tuning = (at.tuning_section(packed, plan, args.device)
+              if plan is not None and plan.tuned else None)
+    bcnn_artifact.save_packed(path, packed, tuning=tuning,
+                              provenance={"seed": args.seed,
+                                          "exported_by": "serve_bcnn"})
+    print(f"exported artifact to {path}"
+          + (" (with tuning section)" if tuning else ""))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--artifact", default="", metavar="DIR",
@@ -44,6 +114,21 @@ def main(argv=None) -> int:
                          "CPU)")
     ap.add_argument("--conv-strategy", default=pc.CONV_STRATEGY,
                     choices=["auto", "direct", "im2col"])
+    ap.add_argument("--conv-fusion", action="store_true",
+                    default=pc.CONV_FUSION,
+                    help="fuse CONV-3/4 and CONV-5/6 into the K5 kernel "
+                         "(bit-exact; the bit map between the two convs "
+                         "stays on chip)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="measure the kernel plan on the engine's device "
+                         "(kernels/autotune.py) unless a cached plan "
+                         "matches this host")
+    ap.add_argument("--tuning-cache", default="", metavar="DIR",
+                    help="artifact whose tuning section to reuse when its "
+                         "key matches this host")
+    ap.add_argument("--export-artifact", default="", metavar="DIR",
+                    help="write the served weights (and a measured plan) "
+                         "as a deployment artifact")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' raises when there is no GPU")
     ap.add_argument("--seed", type=int, default=0)
@@ -61,14 +146,19 @@ def main(argv=None) -> int:
             torch.Generator().manual_seed(args.seed)))
     x, _ = SyntheticImages(global_batch=args.requests,
                            seed=args.seed).batch(0)
+    plan = resolve_plan(packed, args)
     eng = BCNNEngine.from_packed(packed, n_slots=args.slots, path=args.path,
                                  conv_strategy=args.conv_strategy,
+                                 conv_fusion=args.conv_fusion, plan=plan,
                                  device=args.device,
                                  history=max(4096, args.requests))
     where = (torch.cuda.get_device_name(eng.device)
              if eng.device.type == "cuda" else "cpu")
     print(f"engine on {where}: {args.slots} slots, path {eng.plan.path}, "
-          f"conv strategy {eng.plan.conv_strategy[1]}")
+          f"conv strategy {eng.plan.conv_strategy[1]}, fusion "
+          f"{'on' if eng.plan.conv_fusion else 'off'}")
+    if args.export_artifact:
+        export_artifact(args.export_artifact, packed, plan, args)
     if args.rate > 0:
         d = drive_poisson(eng, x, args.rate, seed=args.seed)
         out, st = d["results"], d["stats"]

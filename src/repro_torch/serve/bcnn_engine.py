@@ -16,7 +16,9 @@ deployment forward (``core/bcnn.py::make_packed_forward``) that way:
   (``serve/slots.py::latency_stats``).
 
 ``from_packed`` builds the engine on the GPU unless ``device="cpu"`` is
-passed; without a GPU it raises rather than serving on the CPU. The
+passed; without a GPU it raises rather than serving on the CPU. With
+``autotune=True`` it first measures a plan on that device
+(``kernels/autotune.py::autotune_packed``). The
 fleet, pipeline, data-parallel and hot-swap paths of the reference come
 with later slices of the port.
 """
@@ -58,10 +60,16 @@ class BCNNEngine:
     def from_packed(cls, packed: bcnn.BCNNPacked, *, n_slots: int = 8,
                     path: str = "auto", conv_strategy: str | None = None,
                     conv_fusion: bool | None = None, plan=None,
-                    device="cuda", **kw) -> "BCNNEngine":
+                    autotune: bool = False, device="cuda",
+                    **kw) -> "BCNNEngine":
         """Engine over the packed deployment forward on ``device``. The
         per-knob kwargs build the ``ExecutionPlan`` unless ``plan`` is
-        given ("auto" path: "mxu" on the GPU, "xla" on the CPU)."""
+        given ("auto" path: "mxu" on the GPU, "xla" on the CPU);
+        ``autotune=True`` without a ``plan`` measures one on ``device``
+        at the engine's batch of ``n_slots`` images."""
+        if autotune and plan is None:
+            from repro_torch.kernels.autotune import autotune_packed
+            plan = autotune_packed(packed, device=device, batch=n_slots)
         fwd = bcnn.make_packed_forward(packed, path=path,
                                        conv_strategy=conv_strategy,
                                        conv_fusion=conv_fusion, plan=plan,

@@ -165,14 +165,22 @@ def test_artifact_corruption_and_version_rejected(nets, tmp_path):
 
 
 def test_plan_resolution_and_fusion_not_ported(nets):
+    """Plan resolution; fusion, once refused here, now plans the two
+    Table 2 pairs with the port's default tiles (tests/test_torch_fused.py
+    holds the fused forward against the reference)."""
     _, tpk = nets
     plan = execution_plan.build_plan(tpk, device="cpu")
     assert plan.path == "xla"
     assert plan.conv_strategy == (None,) + ("direct",) * 5 + (None,) * 3
+    assert not plan.conv_fusion and plan.group_tiles == ()
     assert execution_plan.resolve_path("auto", "cuda") == "mxu"
     assert execution_plan.resolve_path("vpu", "cpu") == "vpu"
     assert execution_plan.default_plan(tpk, "cpu") == plan
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        execution_plan.build_plan(tpk, conv_fusion=True)
+    fused = execution_plan.build_plan(tpk, device="cpu", conv_fusion=True)
+    assert fused.conv_fusion
+    assert bcnn.plan_layer_groups(conv_fusion=fused.conv_fusion) == (
+        (0,), (1,), (2, 3), (4, 5), (6,), (7,), (8,))
+    assert fused.group_tiles == ((2, 1, 2), (4, 1, 1))
+    assert fused.tiles_for(2) == (1, 2) and fused.tiles_for(4) == (1, 1)
     with pytest.raises(ValueError):
         execution_plan.resolve_path("tpu")

@@ -10,7 +10,8 @@ the fused threshold epilogue.
 The CUDA kernels themselves (K1-K4) cannot build or run here; they are
 held against the same plain versions on the card by ``chip_smoke.py``.
 What is tested here is that their wrappers refuse CPU tensors and that a
-build without a CUDA compiler raises.
+build without a CUDA compiler raises. The fused pair (K5) is tested the
+same way in tests/test_torch_fused.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -136,6 +137,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
     assert set(_build.SIGNATURES) == {"xnor_matmul_vpu", "xnor_matmul_mxu",
-                                      "xnor_conv2d_vpu", "xnor_conv2d_mxu"}
+                                      "xnor_conv2d_vpu", "xnor_conv2d_mxu",
+                                      "xnor_conv2d_pair_vpu",
+                                      "xnor_conv2d_pair_mxu"}
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "xnor_matmul.cu", "xnor_conv.cu"}
+        "xnor_matmul.cu", "xnor_conv.cu", "xnor_conv_fused.cu"}
