@@ -30,6 +30,23 @@ Phases, each fatal on failure (nothing is caught):
    time at batch 4), require the two plans to agree and every candidate
    to be bit-exact, export the plan in an artifact, reload it as the
    cached plan and serve with it against the CPU port.
+5. The XNOR LM at the full ``configs/xnor_lm_tiny.py::CONFIG``: hold the
+   probe ``forward_packed`` logits of modes "bw" and "xnor" bitwise equal
+   on the card; serve 16 requests through 4 slots in mode "bw" (K6) and in
+   mode "xnor" on "vpu" (K1) and "mxu" (K2), each with launch counters
+   zeroed just before and read just after, and require the tokens of the
+   same port on the CPU; hot-swap a second net mid-run (every weight keeps
+   its storage; tokens equal the CPU port's under the same swap); race
+   the decode GEMM modes twice on one decode step at 4 slots
+   (``autotune_lm_mode``) and require the two to agree; profile one
+   decode step.
+
+Phase 2 also holds K1/K2 bit-exact against their plain version at the
+LM's mode-"xnor" shapes (M = 4 per decode step and 16 for the probe,
+every projection's (K, N), no thresholds), and K6
+(``binary_weight_matmul``) at the LM's shapes: bit-exact on ±1
+activations, allclose on real float32 / bfloat16 activations with a
+scale, at the tolerances of tests/test_torch_bw_matmul.py.
 
 Prints one JSON line of per-kernel numbers, then, last, the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -58,6 +75,7 @@ SEED = 0
 # instruction throughput); each popc covers 32 bit-MACs.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
 POPC_PER_CLK_PER_SM = 16
 
 SOURCES = {
@@ -75,6 +93,9 @@ SOURCES = {
     "xnor_conv2d_pair_mxu": (
         "src/repro_torch/kernels/csrc/xnor_conv_fused.cu",
         "src/repro/kernels/xnor_conv_fused.py:237"),
+    "binary_weight_matmul": (
+        "src/repro_torch/kernels/csrc/binary_weight_matmul.cu",
+        "src/repro/kernels/xnor_matmul.py:196"),
 }
 # Table 2 binary convs: (H=W, C, O); FCs: (N, k, thresholds)
 CONV_SHAPES = [(32, 128, 128), (16, 128, 256), (16, 256, 256),
@@ -82,6 +103,17 @@ CONV_SHAPES = [(32, 128, 128), (16, 128, 256), (16, 256, 256),
 FC_SHAPES = [(1024, 8192, True), (1024, 1024, True), (10, 1024, False)]
 # Table 2 fused pairs CONV-3/4 and CONV-5/6: (H=W, C, OA, OB), 3x3, pooled
 PAIR_SHAPES = [(16, 128, 256, 256), (8, 256, 512, 512)]
+# XNOR LM (configs/xnor_lm_tiny.py::CONFIG, d 128, d_ff 256, 4 layers):
+# K6 calls per decode step by (K, N) — q/k/v/o, up, down in every layer
+BW_CALLS = {(128, 128): 16, (128, 256): 4, (256, 128): 4}
+# tolerances of tests/test_torch_bw_matmul.py (float32 sum order; one
+# bf16 ulp of the rounded output)
+BW_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+          torch.bfloat16: dict(rtol=2 ** -7, atol=1e-2)}
+LM_REQUESTS = 16
+LM_PROMPT = 8
+LM_MAX_NEW = 16
+LM_SWAP_AT = 20          # engine steps before the mid-run hot-swap
 
 
 def check(cond: bool, msg: str) -> None:
@@ -113,8 +145,9 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 
 
 class Bound:
-    """Least time for a call: bytes over the HBM rate vs. bit-MACs over
-    the kernel's compute rate (popc issue for vpu, int8 MMA for mxu)."""
+    """Least time for a call: bytes over the HBM rate vs. MACs over the
+    compute rate for their type (popc issue for vpu bit-MACs, int8 MMA for
+    mxu, the bf16 tensor-core rate for K6's bf16 x ±1 products)."""
 
     def __init__(self):
         props = torch.cuda.get_device_properties(0)
@@ -123,6 +156,7 @@ class Bound:
         self.bitmacs_per_s = {
             "vpu": self.sms * POPC_PER_CLK_PER_SM * clock_mhz * 1e6 * 32,
             "mxu": INT8_OPS_PER_S / 2,
+            "bf16": BF16_FLOPS_PER_S / 2,
         }
         print(f"bound model: {self.sms} SMs at {clock_mhz:.0f} MHz max SM "
               f"clock -> popc {self.bitmacs_per_s['vpu']:.4g} bit-MAC/s; "
@@ -135,15 +169,16 @@ class Bound:
         return t_bytes, t_ops
 
 
-def device_ms(fn, n: int = 21) -> float:
+def device_ms(fn, n: int = 21, per_gate: int | None = None) -> float:
     """Median device time of one call of ``fn``: CUDA events around each of
-    ``n`` calls queued behind a sleep kernel, so the device runs the calls
-    back to back and no host launch cost falls inside an interval
+    ``n`` calls queued behind a sleep kernel (``per_gate`` calls per
+    sleep, default all), so the device runs the calls back to back and no
+    host launch cost falls inside an interval
     (``kernels/autotune.py::device_times``, which the tuner races)."""
     from repro_torch.kernels.autotune import device_times
     fn()
     torch.cuda.synchronize()
-    return statistics.median(device_times(fn, n)) * 1e3
+    return statistics.median(device_times(fn, n, per_gate)) * 1e3
 
 
 def kernel_rows(fn, n: int = 20) -> list[tuple[float, int, str]]:
@@ -204,8 +239,9 @@ def rand_thr(g, n, k, device):
 
 
 def kernel_phase(bound: Bound) -> dict:
-    """Phase 2: bit-exact checks and timings of K1-K4 at the path shapes.
-    Returns per-kernel sums over one forward's launches at batch N_SLOTS."""
+    """Phase 2: bit-exact checks and timings of K1-K6 at the path shapes.
+    Returns per-kernel sums over one BCNN forward's launches at batch
+    N_SLOTS (K6: over one LM decode step)."""
     from repro_torch.core import bitpack
     from repro_torch.kernels import ref
     from repro_torch.kernels import autotune
@@ -227,12 +263,20 @@ def kernel_phase(bound: Bound) -> dict:
               f"{want.dtype}{tuple(want.shape)}")
         check(err == 0, f"{name} {what}: max |kernel - plain| = {err}")
 
-    # --- K1 / K2: FC shapes of the path, ragged extras, im2col shapes
-    mm_cases = [(N_SLOTS, n, k, thr, True) for n, k, thr in FC_SHAPES]
-    mm_cases += [(5, 1000, 1170, True, False), (37, 77, 33, False, False)]
-    mm_cases += [(N_SLOTS * h * h, o, 9 * c, True, False)
+    # --- K1 / K2: FC shapes of the BCNN path, ragged extras, im2col
+    # shapes, and the XNOR LM's projections in mode "xnor" (no thresholds;
+    # M = 4 per decode step, 16 for the (2, 8) probe forward). Only the
+    # BCNN path shapes enter the kernels line; the LM's are summed apart
+    # per decode step.
+    mm_cases = [(N_SLOTS, n, k, thr, "bcnn") for n, k, thr in FC_SHAPES]
+    mm_cases += [(5, 1000, 1170, True, None), (37, 77, 33, False, None)]
+    mm_cases += [(N_SLOTS * h * h, o, 9 * c, True, None)
                  for h, c, o in CONV_SHAPES]
-    for m, n, k, thr, on_path in mm_cases:
+    mm_cases += [(m, n, k, False, site) for m, site in ((N_SLOTS, "lm"),
+                                                          (16, "probe"))
+                 for k, n in BW_CALLS]
+    lm_step_ms = {"xnor_matmul_vpu": 0.0, "xnor_matmul_mxu": 0.0}
+    for m, n, k, thr, site in mm_cases:
         a = bitpack.pack_bits(bitpack.pad_to_pack(rand_bits(g, (m, k), dev)))
         w = bitpack.pack_bits(bitpack.pad_to_pack(rand_bits(g, (n, k), dev)))
         c, f = rand_thr(g, n, k, dev) if thr else (None, None)
@@ -252,7 +296,12 @@ def kernel_phase(bound: Bound) -> dict:
             def run(fn=fn):
                 return fn(a, w, k=k, thr_c=c, thr_flip=f)
             record(name, run(), want, f"M={m} N={n} k={k} thr={thr}")
-            if not on_path:
+            if site == "lm":
+                d = device_ms(run)
+                lm_step_ms[name] += BW_CALLS[(k, n)] * d
+                print(f"  {name}: {d:.4g} ms on the device x "
+                      f"{BW_CALLS[(k, n)]} per LM decode step")
+            if site != "bcnn":
                 continue
             s = stats[name]
             variant = name.rsplit("_", 1)[1]
@@ -266,8 +315,13 @@ def kernel_phase(bound: Bound) -> dict:
                   f"{max(t_b, t_o):.4g} ms")
             s["plain_ms"] += device_ms(plain)
             s["library_ms"] += device_ms(lambda: a_pm1 @ w_pm1t)
+        where = {"bcnn": " (BCNN path shape)", "lm": " (LM decode shape)",
+                 "probe": " (LM probe shape)", None: ""}[site]
         print(f"K1/K2 bit-exact vs plain at M={m} N={n} k={k} "
-              f"thresholds={thr}{' (path shape)' if on_path else ''}")
+              f"thresholds={thr}{where}")
+    print("K1/K2 per LM decode step in mode xnor (24 calls, not in the "
+          "kernels line): " + ", ".join(f"{k} {v:.4f} ms on the device"
+                                        for k, v in lm_step_ms.items()))
 
     # --- K3 / K4: the five binary convs, plus strided / ragged extras
     cv_cases = [(N_SLOTS, h, h, c, o, 3, 1, 1, True, True)
@@ -403,17 +457,96 @@ def kernel_phase(bound: Bound) -> dict:
               f"OB={ob} {fa}x{fa}/{fb}x{fb} pool={pool}, tiles {list(tiles)}"
               f"{' (path shape)' if on_path else ''}")
 
+    bw_phase(g, dev, bound, stats["binary_weight_matmul"])
+
     for name, s in stats.items():
         s["bound_ms"] = max(s["t_bytes"], s["t_ops"])
         s["bound_by"] = "bytes" if s["t_bytes"] >= s["t_ops"] else "operations"
         lib = ("two cuDNN fp16 convs + max_pool2d" if "pair" in name
+               else "torch.mm bf16 -> f32" if name == "binary_weight_matmul"
                else "library")
-        print(f"{name}: per forward at batch {N_SLOTS}: kernel "
+        per = ("LM decode step at 4 slots" if name == "binary_weight_matmul"
+               else f"forward at batch {N_SLOTS}")
+        print(f"{name}: per {per}: kernel "
               f"{s['ms']:.4f} ms on the device ({s['call_ms']:.4f} ms per "
               f"call with the host launch), bound {s['bound_ms']:.4f} ms "
               f"({s['bound_by']}), plain {s['plain_ms']:.4f} ms, {lib} "
               f"{s['library_ms']:.4f} ms")
     return stats
+
+
+def bw_phase(g, dev, bound: Bound, st: dict) -> None:
+    """K6 at the XNOR LM's shapes: M = 4 (decode over 4 slots), 16 and 128
+    (prefill rows), (K, N) of every projection, plus ragged extras.
+    ±1 float32 activations must equal the plain version exactly; real
+    float32 / bfloat16 activations with a scale must be allclose at
+    ``BW_TOL``. Times are summed over one decode step's calls (M = 4)."""
+    from repro_torch.core import bitpack
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import xnor_matmul as kmm
+
+    cases = [(m, k, n, m == N_SLOTS) for m in (N_SLOTS, 16, 128)
+             for k, n in BW_CALLS]
+    cases += [(5, 40, 33, False), (37, 1100, 77, False)]
+    real_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for m, k, n, on_path in cases:
+        w = bitpack.pack_pm1(torch.randn((n, k), generator=g)).to(dev)
+        kp = w.shape[1] * 32
+        a = torch.nn.functional.pad(
+            bitpack.decode_pm1(rand_bits(g, (m, k), dev)), (0, kp - k))
+
+        def run(a=a):
+            return kmm.binary_weight_matmul(a, w)
+
+        def plain(a=a):
+            return ref.binary_weight_matmul_ref(a, w)
+
+        got, want = run(), plain()
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"binary_weight_matmul M={m} K={k} N={n}: {got.dtype}"
+              f"{tuple(got.shape)} vs plain {want.dtype}{tuple(want.shape)}")
+        err = float((got - want).abs().max())
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        check(err == 0, f"binary_weight_matmul ±1 M={m} K={k} N={n}: max "
+              f"|kernel - plain| = {err}")
+        scale = (torch.rand(n, generator=g) + 0.5).to(dev)
+        for dt, tol in BW_TOL.items():
+            ar = torch.nn.functional.pad(
+                torch.randn((m, k), generator=g).to(dev, dt), (0, kp - k))
+            got = kmm.binary_weight_matmul(ar, w, scale=scale)
+            want = ref.binary_weight_matmul_ref(ar, w, scale)
+            check(got.dtype == dt and torch.allclose(
+                got.float(), want.float(), **tol),
+                f"binary_weight_matmul {dt} M={m} K={k} N={n}: max "
+                f"|kernel - plain| = {(got.float() - want.float()).abs().max()}")
+            real_err[dt] = max(real_err[dt],
+                               float((got.float() - want.float()).abs().max()))
+        print(f"K6 vs plain at M={m} K={k} N={n}: ±1 bit-exact, real "
+              f"float32 / bfloat16 with scale allclose"
+              f"{' (path shape)' if on_path else ''}")
+        if not on_path:
+            print(f"  binary_weight_matmul M={m} K={k} N={n}: "
+                  f"{device_ms(run):.4g} ms on the device")
+            continue
+        calls = BW_CALLS[(k, n)]
+        t_b, t_o = bound("bf16", a.numel() * 4 + w.numel() * 4 + m * n * 4,
+                         m * n * k)
+        st["t_bytes"] += calls * t_b
+        st["t_ops"] += calls * t_o
+        d = device_ms(run)
+        st["ms"] += calls * d
+        st["call_ms"] += calls * time_ms(run)
+        st["plain_ms"] += calls * device_ms(plain)
+        a16 = a.to(torch.bfloat16)
+        w16t = bitpack.decode_pm1(bitpack.unpack_bits(w),
+                                  torch.bfloat16).T.contiguous()
+        st["library_ms"] += calls * device_ms(
+            lambda: torch.mm(a16, w16t, out_dtype=torch.float32))
+        print(f"  binary_weight_matmul: {d:.4g} ms on the device x {calls} "
+              f"per decode step, bound {max(t_b, t_o):.4g} ms")
+    print(f"K6 real-activation max |kernel - plain|: float32 "
+          f"{real_err[torch.float32]:.3g}, bfloat16 "
+          f"{real_err[torch.bfloat16]:.3g}")
 
 
 def build_phase() -> None:
@@ -637,6 +770,167 @@ def tune_phase(reference) -> None:
     serve(eng, x_np, logits_cpu, "tuned")
 
 
+def lm_serve(cfg, packed, prompts, device, mode, path, swap_to=None):
+    """Serve ``prompts`` through a 4-slot engine on ``device``; with
+    ``swap_to``, hot-swap that packed net after ``LM_SWAP_AT`` steps and
+    require every weight tensor to keep its storage. Returns (tokens per
+    prompt, wall seconds, engine)."""
+    from repro_torch.models import xnor_lm as xl
+    eng, model = xl.make_serving_engine(cfg, packed, n_slots=N_SLOTS,
+                                        mode=mode, path=path, device=device)
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=LM_MAX_NEW) for p in prompts]
+    if swap_to is None:
+        out = eng.run()
+    else:
+        out = eng.run(max_steps=LM_SWAP_AT)
+        ptrs = [t.data_ptr() for t in eng.params]
+        eng.swap_params(model.swap_arrays(swap_to))
+        check([t.data_ptr() for t in eng.params] == ptrs,
+              "a weight tensor changed storage in the hot-swap")
+        out.update(eng.run())
+    dt = time.perf_counter() - t0
+    check(sorted(out) == sorted(rids), f"[lm {device} {mode}] requests lost")
+    toks = [out[r] for r in rids]
+    check(all(len(t) == LM_MAX_NEW and all(0 <= x < cfg.vocab_size
+                                           for x in t) for t in toks),
+          f"[lm {device} {mode}] malformed tokens")
+    return toks, dt, eng
+
+
+def lm_phase() -> int:
+    """Phase 5: the XNOR LM at full CONFIG on the card against the same
+    port on the CPU. Returns K6's launch count from the "bw" serving
+    run."""
+    from repro_torch import configs
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import xnor_matmul as kmm
+    from repro_torch.models import xnor_lm as xl
+    from repro_torch.serve.slots import latency_stats
+
+    cfg = configs.get_config("xnor-lm-tiny")
+    packed = xl.fold(cfg, xl.params_from_numpy(xl.numpy_params(cfg, SEED)))
+    packed2 = xl.fold(cfg, xl.params_from_numpy(
+        xl.numpy_params(cfg, SEED + 1)))
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, (LM_PROMPT,)).tolist()
+               for _ in range(LM_REQUESTS)]
+    print(f"[lm] CONFIG {cfg}: {LM_REQUESTS} requests (prompt {LM_PROMPT}, "
+          f"max_new {LM_MAX_NEW}) through {N_SLOTS} slots")
+
+    # probe forward at (2, 8): "bw" and "xnor" bitwise equal on the card,
+    # allclose to the CPU port (float32 spine in another order)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)))
+    gpu = xl.packed_to(packed, "cuda")
+    want = xl.forward_packed(cfg, packed, toks, mode="bw")
+    logits = {(m, p): xl.forward_packed(cfg, gpu, toks.cuda(), mode=m,
+                                        path=p).cpu()
+              for m, p in (("bw", "mxu"), ("xnor", "vpu"), ("xnor", "mxu"))}
+    for key, got in logits.items():
+        check(torch.equal(got, logits[("bw", "mxu")]),
+              f"[lm] forward_packed {key} differs from bw on the card")
+    got = logits[("bw", "mxu")]
+    check(got.shape == (2, 8, cfg.vocab_size) and bool(got.isfinite().all())
+          and torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+          and torch.equal(got.argmax(-1), want.argmax(-1)),
+          f"[lm] forward_packed on the card vs CPU: max "
+          f"{(got - want).abs().max():.3g}")
+    print(f"[lm] forward_packed (2, 8): bw == xnor/vpu == xnor/mxu bitwise "
+          f"on the card; max |gpu - cpu| {(got - want).abs().max():.3g}, "
+          f"argmax equal")
+
+    want_toks, _, _ = lm_serve(cfg, packed, prompts, "cpu", "bw", "xla")
+    counters = {"binary_weight_matmul": kmm.binary_weight_matmul,
+                "xnor_matmul_vpu": kmm.xnor_matmul_vpu,
+                "xnor_matmul_mxu": kmm.xnor_matmul_mxu}
+    per_step = 6 * cfg.n_layers                # K6 or K1/K2 calls per step
+    k6_launches = None
+    for mode, path, kernel in (("bw", "mxu", "binary_weight_matmul"),
+                               ("xnor", "vpu", "xnor_matmul_vpu"),
+                               ("xnor", "mxu", "xnor_matmul_mxu")):
+        tag = f"lm {mode}{'/' + path if mode == 'xnor' else ''}"
+        for fn in counters.values():
+            fn.launches = 0
+        toks_gpu, dt, eng = lm_serve(cfg, packed, prompts, "cuda", mode, path)
+        seen = {k: fn.launches for k, fn in counters.items()}
+        steps = eng.steps_executed
+        print(f"[{tag}] launches over {steps} decode steps: {seen}")
+        check(seen[kernel] == per_step * steps and all(
+            v == 0 for k, v in seen.items() if k != kernel),
+            f"[{tag}] expected {per_step} {kernel} launches per step and "
+            f"no other binary matmul")
+        if mode == "bw":
+            k6_launches = seen[kernel]
+        check(toks_gpu == want_toks, f"[{tag}] served tokens differ from "
+              f"the CPU port's")
+        st = latency_stats(eng.sched.finished)
+        n_tok = sum(len(t) for t in toks_gpu)
+        print(f"[{tag}] tokens equal the CPU port's; indicative only "
+              f"({LM_REQUESTS} requests): {n_tok / dt:.1f} tok/s, request "
+              f"latency p50 {st['p50'] * 1e3:.2f} ms, p99 "
+              f"{st['p99'] * 1e3:.2f} ms, {dt * 1e3 / steps:.3f} ms per "
+              f"step")
+
+    want_swap, _, _ = lm_serve(cfg, packed, prompts, "cpu", "bw", "xla",
+                               swap_to=packed2)
+    got_swap, _, _ = lm_serve(cfg, packed, prompts, "cuda", "bw", "mxu",
+                              swap_to=packed2)
+    check(got_swap == want_swap, "[lm swap] tokens differ from the CPU port")
+    check(got_swap != want_toks, "[lm swap] the swap changed no token")
+    print(f"[lm swap] hot-swap after {LM_SWAP_AT} steps: every weight kept "
+          f"its storage, tokens equal the CPU port's under the same swap")
+
+    modes = []
+    for run in (1, 2):
+        report = {}
+        t0 = time.perf_counter()
+        modes.append(at.autotune_lm_mode(cfg, packed, device="cuda",
+                                         n_slots=N_SLOTS, report=report))
+        check(report["equal"], "[lm tune] bw and xnor logits differ")
+        print(f"[lm tune {run}] {modes[-1]} in "
+              f"{time.perf_counter() - t0:.1f} s; decode step at "
+              f"{N_SLOTS} slots, device ms "
+              f"(median ± spread): " + ", ".join(
+                  f"{m} {t * 1e3:.4f} ± {sp * 1e3:.4f}"
+                  for m, (t, sp) in report["scores"].items())
+              + f" (xnor on {report['path']})")
+    check(modes[0] == modes[1], f"[lm tune] two races disagree: {modes}")
+
+    # one decode step at 4 slots, mode bw: launches, wall, device, idle
+    eng, model = xl.make_serving_engine(cfg, packed, n_slots=N_SLOTS,
+                                        device="cuda")
+    state = model.init_state(N_SLOTS, cfg.max_len)
+    step_toks = torch.zeros((N_SLOTS, 1), dtype=torch.int64, device="cuda")
+
+    def step():
+        return model.decode_step(eng.params, state, step_toks)[0]
+
+    step()
+    torch.cuda.synchronize()
+    n = 50
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    busy_ms = device_ms(step, n=9, per_gate=1)
+    print(f"[lm] decode step (bw, {N_SLOTS} slots): wall {wall_ms:.4f} ms, "
+          f"device {busy_ms:.4f} ms, device idle share "
+          f"{1 - busy_ms / wall_ms:.3f}")
+    rows = kernel_rows(step, 10)
+    if rows:
+        print(f"  per-kernel breakdown (torch.profiler): "
+              f"{sum(r[1] for r in rows)} launches, "
+              f"{sum(r[0] for r in rows):.4f} ms of kernels per step")
+        for t, count, key in rows[:10]:
+            print(f"    {t:.4f} ms  x{count}  {key[:90]}")
+    else:
+        print("  per-kernel breakdown: not measured (the profiler recorded "
+              "no device kernels)")
+    print(f"card: {smi('name,power.limit')}")
+    return k6_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -655,6 +949,7 @@ def main() -> int:
     reference = cpu_reference()
     launches = serve_phase(reference)
     tune_phase(reference)
+    launches["binary_weight_matmul"] = lm_phase()
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         s = stats[name]

@@ -1,4 +1,5 @@
-"""First-layer quantizers of the deployment path (paper §3.1, eq. 7).
+"""Binarize and the first-layer quantizers of the deployment path
+(paper eq. 4, §3.1, eq. 7).
 
 Forward-only counterparts of ``repro/core/binarize.py``; the straight-
 through estimators belong to the training half of the port.
@@ -7,6 +8,12 @@ through estimators belong to the training half of the port.
 from __future__ import annotations
 
 import torch
+
+
+def binarize_ste(x: torch.Tensor) -> torch.Tensor:
+    """sign(x) in {−1, +1} in x's dtype, +1 at 0 (eq. 4): the forward of
+    the reference's straight-through binarize."""
+    return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
 
 
 def quantize_input_6bit(x: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,7 @@ static, hashable object (counterpart of ``repro/core/execution_plan.py``).
 * ``conv_fusion`` and ``group_tiles`` — fuse CONV-3/4 and CONV-5/6 into
   the K5 kernel, with each pair's (th, tw) output tile
   (``kernels/xnor_conv_fused.py::pick_tiles`` by default).
+* ``lm_mode`` — the XNOR LM's decode GEMM, "bw" (K6) or "xnor".
 
 Tuned plans persist in the deployment artifact (``core/bcnn_artifact.py``
 ``tuning`` section), keyed by (backend, device kind, model geometry); a
@@ -26,7 +27,7 @@ import torch
 
 from repro_torch.core import bcnn, bconv
 
-DEFAULT_LM_MODE = "bw"   # the XNOR LM's decode GEMM mode (a later slice)
+DEFAULT_LM_MODE = "bw"   # the XNOR LM's decode GEMM mode
 PLAN_PATHS = ("vpu", "mxu", "xla")
 
 
@@ -60,8 +61,10 @@ class ExecutionPlan:
     conv_strategy: per-layer resolved dataflow, length ``bcnn.N_LAYERS``
     conv_fusion:   fuse the same-resolution conv pairs (K5)
     group_tiles:   per fused pair ``(first_layer_idx, th, tw)``
-    lm_mode:       XNOR LM decode GEMM mode ("bw" | "xnor"); kept for the
-                   reference's plan format, read by no module yet
+    lm_mode:       XNOR LM decode GEMM mode, read by
+                   ``models/xnor_lm.py::XnorLMServeModel``: "bw" (K6, the
+                   weight-only matmul) or "xnor" (K1/K2 by ``path``);
+                   measured by ``kernels/autotune.py::autotune_lm_mode``
     tuned:         True when measured by ``kernels/autotune.py``
     """
     path: str = "xla"

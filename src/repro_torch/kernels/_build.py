@@ -32,6 +32,8 @@ _MATMUL_ARGS = [_P] * 5 + [_I] * 4 + [_P]
 _CONV_ARGS = [_P] * 5 + [_I] * 13 + [_P]
 # a, wa, ca, fa, wb, cb, fb, out, <ints>, stream
 _PAIR_ARGS = [_P] * 8 + [_I] * 15 + [_P]
+# a, w, scale, out, M, N, Kw, a_bf16, stream
+_BW_ARGS = [_P] * 4 + [_I] * 4 + [_P]
 SIGNATURES = {
     "xnor_matmul_vpu": _MATMUL_ARGS,
     "xnor_matmul_mxu": _MATMUL_ARGS,
@@ -39,6 +41,7 @@ SIGNATURES = {
     "xnor_conv2d_mxu": _CONV_ARGS,
     "xnor_conv2d_pair_vpu": _PAIR_ARGS,
     "xnor_conv2d_pair_mxu": _PAIR_ARGS,
+    "binary_weight_matmul": _BW_ARGS,
 }
 
 

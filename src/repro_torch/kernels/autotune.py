@@ -17,6 +17,9 @@ Candidate space (per layer / pair, legality shared with the heuristics):
   ``pick_tiles`` applies;
 * fusion on/off — the fused pairs raced against their two-layer
   sequential fold.
+* the XNOR LM's decode GEMM mode, "bw" (K6) against "xnor" (K1/K2), on
+  one ``models/xnor_lm.py::decode_step`` at the served slot count
+  (``autotune_lm_mode``).
 
 Protocol: ``warmup`` untimed calls, then ``reps`` timed calls at the
 served batch, scored by their median and spread (``measure``). On a CUDA
@@ -46,6 +49,7 @@ from repro_torch.kernels import xnor_conv_fused as kfused
 AUTOTUNE_REPS = 21         # timed calls per candidate (median and spread)
 AUTOTUNE_WARMUP = 1        # untimed calls first (kernel build, caches)
 AUTOTUNE_BATCH = 4         # probe batch: the served 4 slots by default
+LM_PROBE_STEPS = 8         # LM decode steps whose logits the modes compare
 # A time's spread is at least this share of its median: one kernel's
 # device time repeated within 3% between two chip runs (PERF.md §5).
 TIE_REL = 0.03
@@ -116,14 +120,23 @@ def _block(x):
     return x
 
 
-def device_times(fn, reps: int) -> list[float]:
+def device_times(fn, reps: int, per_gate: int | None = None) -> list[float]:
     """Device seconds of each of ``reps`` calls of ``fn`` on the current
     CUDA device: CUDA events around calls queued behind a sleep kernel,
     so the device runs them back to back and no host launch cost falls
     inside an interval. The sleep is lengthened until the host gets ahead
-    of it. ``fn`` must not synchronize, and ``reps`` x (launches per
-    call) must stay well under the device's queue of pending launches
-    (about a thousand), or the host blocks on a full queue."""
+    of it. ``fn`` must not synchronize, and the calls queued behind one
+    sleep (``per_gate``, default all ``reps``) x launches per call must
+    stay well under the device's queue of pending launches (about a
+    thousand), or the host blocks on a full queue."""
+    per_gate = per_gate or reps
+    ts: list[float] = []
+    while len(ts) < reps:
+        ts += _gated_times(fn, min(per_gate, reps - len(ts)))
+    return ts
+
+
+def _gated_times(fn, reps: int) -> list[float]:
     cycles = 20_000_000
     while cycles < 3 * 10 ** 9:
         ev = [(torch.cuda.Event(enable_timing=True),
@@ -145,17 +158,19 @@ def device_times(fn, reps: int) -> list[float]:
 
 
 def measure(fn, *, device, timer=None, reps: int = AUTOTUNE_REPS,
-            warmup: int = AUTOTUNE_WARMUP) -> tuple[float, float]:
+            warmup: int = AUTOTUNE_WARMUP,
+            per_gate: int | None = None) -> tuple[float, float]:
     """(median, spread) in seconds of ``reps`` calls of ``fn`` after
     ``warmup`` untimed ones: device time on a CUDA ``device`` when no
-    ``timer`` is given, else wall time by the clock ``timer`` (default
+    ``timer`` is given (``device_times``, ``per_gate`` calls behind each
+    sleep), else wall time by the clock ``timer`` (default
     ``time.perf_counter``) around calls that each end in a device sync.
     The spread is the interquartile range, at least ``TIE_REL`` of the
     median."""
     for _ in range(warmup):
         _block(fn())
     if timer is None and device.type == "cuda":
-        ts = device_times(fn, reps)
+        ts = device_times(fn, reps, per_gate)
     else:
         timer = timer or time.perf_counter
         ts = []
@@ -351,6 +366,61 @@ def autotune_packed(packed, *, device="cuda",
         report["plan"] = execution_plan.plan_to_dict(plan)
         report["key"] = execution_plan.plan_cache_key(packed, device)
     return plan
+
+
+def autotune_lm_mode(cfg, packed, *, device="cuda",
+                     n_slots: int = AUTOTUNE_BATCH, timer=None,
+                     reps: int = AUTOTUNE_REPS,
+                     warmup: int = AUTOTUNE_WARMUP,
+                     report: dict | None = None) -> str:
+    """Race the XNOR LM's decode GEMM modes, "bw" (K6) against "xnor"
+    (K1/K2 on the device's default path: "mxu" on the card), on the work
+    that ``ExecutionPlan.lm_mode`` serves: one ``decode_step`` of an
+    ``n_slots``-slot engine on ``device`` → the mode for
+    ``ExecutionPlan.lm_mode``.
+
+    Both modes first decode the same ``LM_PROBE_STEPS`` tokens per slot
+    from an empty cache; the race runs only when every step's logits are
+    equal, otherwise the default mode is returned. "bw", the default, is
+    kept unless "xnor" is faster by more than the two spreads
+    (``_pick``). One step, some hundreds of launches, is queued behind
+    each sleep gate. ``report`` (optional dict) receives whether the
+    logits were equal, each mode's (median, spread) seconds per step and
+    the path of "xnor".
+    """
+    # imported here: the kernels layer does not depend on a model module
+    from repro_torch.models import xnor_lm
+    device = execution_plan.resolve_device(device)
+    path = execution_plan.resolve_path("auto", device)
+    packed = xnor_lm.packed_to(packed, device)
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_PROBE_STEPS, n_slots, 1),
+                           generator=gen).to(device)
+    order = _first(xnor_lm.MODES, execution_plan.DEFAULT_LM_MODE)
+    states = {mode: xnor_lm.init_serve_state(cfg, n_slots, cfg.max_len,
+                                             device) for mode in order}
+
+    def step(mode, tok):
+        return xnor_lm.decode_step(cfg, packed, states[mode], tok,
+                                   mode=mode, path=path)[0]
+
+    outs = [torch.cat([step(mode, t) for t in tokens]).cpu()
+            for mode in order]
+    equal = all(torch.equal(outs[0], o) for o in outs[1:])
+    scores = {}
+    if equal:
+        # the timed steps go on from the probe's state; a step attends
+        # over the whole cache under a mask and drops writes past it, so
+        # its work does not depend on how far the lengths have run
+        scores = {mode: measure(lambda mode=mode: step(mode, tokens[-1]),
+                                device=device, timer=timer, reps=reps,
+                                warmup=warmup, per_gate=1)
+                  for mode in order}
+    if report is not None:
+        report["equal"] = equal
+        report["scores"] = scores
+        report["path"] = path
+    return _pick(scores) or execution_plan.DEFAULT_LM_MODE
 
 
 # ---------------------------------------------------------------------------

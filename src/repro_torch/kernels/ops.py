@@ -10,7 +10,8 @@ Dispatch is by the tensor's device:
 * CUDA tensor — ``"vpu"`` launches K1/K3/K5 (XNOR + popcount on the CUDA
   cores), ``"mxu"`` launches K2/K4/K5 (±1 int8 on the tensor cores), and
   ``"xla"`` raises: the plain version is reached on the card only by
-  calling ``kernels/ref.py`` directly. No ``try`` falls back from a kernel.
+  calling ``kernels/ref.py`` directly. ``binary_weight_matmul`` has one
+  kernel (K6) and no ``path``. No ``try`` falls back from a kernel.
 
 Padding: pad bits are 0 (−1) in both operands and agree, so the kernels
 subtract ``n_pad = Kw·32 − k`` (``L·32 − k`` for the per-position conv
@@ -20,6 +21,7 @@ never yield a bit because the kernels mask their ragged edges.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import bitpack
 from repro_torch.kernels import ref
@@ -180,3 +182,38 @@ def xnor_conv2d_pair(a_bits: torch.Tensor, wa_words: torch.Tensor,
         a_bits, wa_bits[..., :c], wb_bits[..., :oa], thr_a_c=thr_a_c,
         thr_a_flip=thr_a_flip, thr_b_c=thr_b_c, thr_b_flip=thr_b_flip,
         pool_b=pool_b)
+
+
+def binary_weight_matmul(a: torch.Tensor, w_words: torch.Tensor, *, k: int,
+                         scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Weight-only binary matmul: real (..., K) × packed (N, Kw) → (..., N)
+    in a's dtype, the XNOR LM's decode GEMM. Activations are rounded to
+    bf16 and multiplied by the ±1 weights with float32 sums; ``scale`` is
+    an optional per-output-channel factor (the binary-weight α).
+
+    ``k`` must equal ``a.shape[-1]``, and the weights must carry
+    ``ceil(k/32)`` words. A ragged K is padded with zero activations, which
+    neutralize the pad weight bits. On the card this launches K6.
+    """
+    lead = a.shape[:-1]
+    kk = a.shape[-1]
+    n, kw = w_words.shape
+    if k != kk:
+        raise ValueError(
+            f"k={k} disagrees with the activations' in_features {kk}; pass "
+            f"k = a.shape[-1] (the true reduction length)")
+    if bitpack.packed_len(kk) != kw:
+        raise ValueError(
+            f"in_features {kk} needs ceil({kk}/32)={bitpack.packed_len(kk)} "
+            f"packed weight words, got {kw}")
+    a2 = a.reshape(-1, kk)
+    if kk < kw * bitpack.PACK:
+        a2 = F.pad(a2, (0, kw * bitpack.PACK - kk))
+    s = None if scale is None else scale.reshape(-1).to(torch.float32)
+    if a2.is_cuda:
+        y = kmm.binary_weight_matmul(
+            a2.contiguous(), w_words.contiguous(),
+            scale=None if s is None else s.contiguous())
+    else:
+        y = ref.binary_weight_matmul_ref(a2, w_words, s)
+    return y.reshape(*lead, n)

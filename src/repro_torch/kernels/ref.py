@@ -8,7 +8,10 @@ Each computes the ±1 dot product as a float32 matrix product of the
 unpacked operands. That is exact while every partial sum stays below
 2**24 in magnitude; the largest reduction on the Table 2 path is
 k = 8192 (FC-1). ``xnor_conv2d_pair_ref`` is the fused pair (K5) as two
-of those convs. On a CUDA tensor the product goes to cuBLAS, so a caller
+of those convs. ``binary_weight_matmul_ref`` (K6) multiplies real
+activations, rounded to bf16, by the unpacked ±1 weights in float32: the
+products are exact, so only the order of the float32 sums can differ
+from the kernel's. On a CUDA tensor the product goes to cuBLAS, so a caller
 there keeps float32 accumulation: ``chip_smoke.py`` turns TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, the PyTorch default)
 before it calls these.
@@ -34,6 +37,20 @@ def xnor_matmul_ref(a_words: torch.Tensor, w_words: torch.Tensor,
     w = bitpack.decode_pm1(bitpack.unpack_bits(w_words))
     dot = a @ w.T
     return ((dot + kp) / 2).to(torch.int32) - (kp - k)
+
+
+def binary_weight_matmul_ref(a: torch.Tensor, w_words: torch.Tensor,
+                             scale: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """Real (M, Kw·32) activations × packed (N, Kw) ±1 weights → (M, N)
+    in a's dtype: a rounded to bf16, ±1 products summed in float32, times
+    the per-column ``scale`` when given. Activations past the true K are
+    zero, so the pad weight bits add nothing."""
+    a32 = a.to(torch.bfloat16).to(torch.float32)
+    y = a32 @ bitpack.decode_pm1(bitpack.unpack_bits(w_words)).T
+    if scale is not None:
+        y = y * scale
+    return y.to(a.dtype)
 
 
 def norm_binarize_ref(y_l: torch.Tensor, c: torch.Tensor,

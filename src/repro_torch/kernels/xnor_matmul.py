@@ -1,16 +1,24 @@
-"""Wrappers of the CUDA XNOR matmul kernels K1 and K2 (``csrc/xnor_matmul.cu``).
+"""Wrappers of the CUDA binary matmul kernels K1, K2
+(``csrc/xnor_matmul.cu``) and K6 (``csrc/binary_weight_matmul.cu``).
 
 * ``xnor_matmul_vpu`` (K1) replaces ``repro/kernels/xnor_matmul.py::
   xnor_matmul_vpu``: XNOR + ``__popc`` on the CUDA cores.
 * ``xnor_matmul_mxu`` (K2) replaces ``repro/kernels/xnor_matmul.py::
   xnor_matmul_mxu``: ±1 int8 unpack + WMMA tensor-core dot, int32 sums.
+* ``binary_weight_matmul`` (K6) replaces ``repro/kernels/xnor_matmul.py::
+  binary_weight_matmul``: real activations × packed ±1 weights on the
+  CUDA cores, float32 sums.
 
-Both take (M, Kw) and (N, Kw) int32 CUDA tensors and return (M, N) int32
-agree-counts, or int8 {0,1} bits when thresholds are given (fused eq. 8).
-They launch on the current stream, allocate only their output, and count
-their launches in a plain int attribute (``xnor_matmul_vpu.launches``).
-The plain version of both is ``kernels/ref.py::xnor_matmul_ref`` (+
-``norm_binarize_ref``); ``kernels/ops.py`` runs it on CPU tensors.
+K1 and K2 take (M, Kw) and (N, Kw) int32 CUDA tensors and return (M, N)
+int32 agree-counts, or int8 {0,1} bits when thresholds are given (fused
+eq. 8); their plain version is ``kernels/ref.py::xnor_matmul_ref`` (+
+``norm_binarize_ref``). K6 takes (M, Kw·32) float32 or bfloat16
+activations and (N, Kw) int32 words and returns (M, N) in the
+activations' dtype; its plain version is ``kernels/ref.py::
+binary_weight_matmul_ref``. Every wrapper launches on the current stream,
+allocates only its output, and counts its launches in a plain int
+attribute (``xnor_matmul_vpu.launches``); ``kernels/ops.py`` runs the
+plain versions on CPU tensors.
 """
 from __future__ import annotations
 
@@ -90,5 +98,44 @@ def xnor_matmul_mxu(a_words: torch.Tensor, w_words: torch.Tensor, *, k: int,
     return out
 
 
+def binary_weight_matmul(a: torch.Tensor, w_words: torch.Tensor, *,
+                         scale: torch.Tensor | None = None) -> torch.Tensor:
+    """K6: real (M, Kw·32) activations × packed (N, Kw) ±1 weights → (M,
+    N) in a's dtype. Each activation is rounded to bf16, the ±1 products
+    are summed in float32, then multiplied by ``scale`` (N,) float32 when
+    given. Activations past the true K must be zero."""
+    if not a.is_cuda:
+        raise ValueError("a must be a CUDA tensor (the plain version for "
+                         "CPU tensors is kernels/ref.py)")
+    if (a.dtype not in (torch.float32, torch.bfloat16) or a.ndim != 2
+            or not a.is_contiguous() or a.numel() == 0):
+        raise ValueError(f"a must be a non-empty contiguous 2-D float32 or "
+                         f"bfloat16 tensor, got {tuple(a.shape)} {a.dtype}")
+    check_words(w_words, 2, "w_words")
+    m, kp = a.shape
+    n, kw = w_words.shape
+    if kp != kw * bitpack.PACK or w_words.device != a.device:
+        raise ValueError(f"a {tuple(a.shape)} on {a.device} needs "
+                         f"{kw} x 32 columns for w_words {tuple(w_words.shape)}"
+                         f" on {w_words.device}")
+    if scale is not None and (
+            scale.dtype != torch.float32 or tuple(scale.shape) != (n,)
+            or scale.device != a.device or not scale.is_contiguous()):
+        raise ValueError(f"scale must be a contiguous ({n},) float32 tensor "
+                         f"on {a.device}, got {tuple(scale.shape)} "
+                         f"{scale.dtype} on {scale.device}")
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.launch("binary_weight_matmul", a.data_ptr(),
+                      w_words.data_ptr(),
+                      scale.data_ptr() if scale is not None else None,
+                      out.data_ptr(), m, n, kw,
+                      int(a.dtype == torch.bfloat16), stream)
+    binary_weight_matmul.launches += 1
+    return out
+
+
 xnor_matmul_vpu.launches = 0
 xnor_matmul_mxu.launches = 0
+binary_weight_matmul.launches = 0

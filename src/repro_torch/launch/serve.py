@@ -1,0 +1,100 @@
+"""LM serving entry point: continuous batching over decode slots (counterpart
+of ``repro/launch/serve.py``, for the architectures the port has).
+
+Serves the XNOR LM (``--arch xnor-lm-tiny``): ``models/xnor_lm.py``'s
+binarized transformer with random weights from ``--seed``, folded to its
+packed form and served on ``serve/engine.py::ServingEngine``. On the card
+the decode GEMM is K6 (``--mode bw``) or K1/K2 (``--mode xnor`` with
+``--path vpu|mxu``). ``--swap`` hot-swaps a second folded net after the
+first batch of requests and asserts that every weight tensor kept its
+storage (the counterpart of the reference's one-compile assertion).
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 \\
+        --slots 4 --max-new 16 --swap                  # on the GPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --smoke --swap                                 # plain path, CPU
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.core.execution_plan import resolve_device
+from repro_torch.models import xnor_lm
+
+
+def _run_requests(eng, cfg, args, rng):
+    for _ in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab_size, (args.prompt_len,)).tolist()
+        eng.submit(prompt, max_new_tokens=args.max_new)
+    t0 = time.perf_counter()
+    out = eng.run()
+    return out, time.perf_counter() - t0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="xnor-lm-tiny",
+                    choices=sorted(configs.BINARY_LM_MODULES))
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--smoke", action="store_true",
+                    help="serve the arch's SMOKE_CONFIG")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--mode", default="bw", choices=xnor_lm.MODES,
+                    help="decode GEMM: weight-only binary matmul (bw, K6) "
+                         "or full XNOR popcount (xnor, K1/K2)")
+    ap.add_argument("--path", default="mxu", choices=["vpu", "mxu", "xla"],
+                    help="kernel path of --mode xnor on the card (xla is "
+                         "the plain version, CPU only)")
+    ap.add_argument("--swap", action="store_true",
+                    help="hot-swap a freshly folded net after the first "
+                         "requests and assert the weights kept storage")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = configs.get_config(args.arch, smoke=args.smoke)
+    rng = np.random.default_rng(args.seed)
+    max_len = min(args.max_len, cfg.max_len)
+    packed = xnor_lm.fold(cfg, xnor_lm.init(
+        cfg, torch.Generator().manual_seed(args.seed)))
+    eng, model = xnor_lm.make_serving_engine(
+        cfg, packed, n_slots=args.slots, max_len=max_len, mode=args.mode,
+        path=args.path, device=device)
+    print(f"engine on {device}: {args.arch}{' (smoke)' if args.smoke else ''},"
+          f" {args.slots} slots, max_len {max_len}, mode {args.mode}")
+    out, dt = _run_requests(eng, cfg, args, rng)
+    if args.swap:
+        ptrs = [t.data_ptr() for t in eng.params]
+        packed2 = xnor_lm.fold(cfg, xnor_lm.init(
+            cfg, torch.Generator().manual_seed(args.seed + 1)))
+        eng.swap_params(model.swap_arrays(packed2))
+        assert [t.data_ptr() for t in eng.params] == ptrs, \
+            "weight hot-swap must keep every weight tensor's storage"
+        out2, dt2 = _run_requests(eng, cfg, args, rng)
+        assert len(out2) == args.requests
+        out = {**out, **out2}        # rids are engine-wide monotonic
+        dt += dt2
+        print(f"hot-swap OK: all {len(ptrs)} weight tensors kept their "
+              f"storage across the swap")
+    n_req = args.requests * (2 if args.swap else 1)
+    n_tok = sum(len(v) for v in out.values())
+    print(f"served {len(out)}/{n_req} requests, {n_tok} tokens in "
+          f"{dt:.2f}s ({n_tok / dt:,.1f} tok/s, "
+          f"{eng.steps_executed} engine steps)")
+    assert len(out) == n_req, "engine dropped requests"
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,137 @@
+"""Batched serving engine with continuous batching over fixed decode slots
+(counterpart of ``repro/serve/engine.py``).
+
+The paper's online scenario (§6.3, Fig. 7) as an LM server: a fixed set
+of ``n_slots`` decode slots is stepped every iteration, and a request
+joins a slot the moment one frees up instead of waiting for a batch:
+
+* one shared KV cache with the slots on its batch axis;
+* per-slot prefill, the prompt fed one token per step through the same
+  decode step;
+* greedy decoding, EOS / max-token / cache-end eviction, FIFO admission
+  (``serve/slots.py``);
+* every step has the same shapes whatever the occupancy: the step's
+  tokens are always an ``(n_slots, 1)`` tensor on the engine's device.
+
+The model behind the step is an adapter with ``init_state`` /
+``decode_step`` / ``reset_slot`` and a ``device``;
+``models/xnor_lm.py::XnorLMServeModel`` is the one the port has (the
+reference's default ``TransformerServeModel`` and its audio path come
+with the LM zoo). The reference jit-compiles the step once and donates
+the state; here the step runs eagerly and the adapter updates the state
+in place. ``swap_params`` copies new weights into the live tensors, the
+counterpart of the reference's swap without a recompile: every weight
+keeps its storage.
+"""
+from __future__ import annotations
+
+from collections import deque
+
+import numpy as np
+import torch
+
+from repro_torch.serve.slots import SlotScheduler
+
+
+class ServingEngine:
+    def __init__(self, cfg, params, *, model, n_slots: int = 8,
+                 max_len: int = 512, eos_id: int = -1):
+        self.cfg, self.params = cfg, tuple(params)
+        self.n_slots, self.max_len, self.eos = n_slots, max_len, eos_id
+        self.model = model
+        self.device = model.device
+        self.state = model.init_state(n_slots, max_len)
+        self.sched = SlotScheduler(n_slots)
+        self._steps = 0
+        self._pos = np.zeros((n_slots,), np.int64)       # tokens consumed
+        self._pending: list[deque] = [deque() for _ in range(n_slots)]
+
+    # ------------------------------------------------------------------ api
+    def submit(self, prompt_tokens: list[int],
+               max_new_tokens: int = 32) -> int:
+        """Enqueue a prompt; returns the request id."""
+        if len(prompt_tokens) >= self.max_len - 1:
+            # the KV cache holds max_len positions and generation needs at
+            # least one; a longer prompt would run past the cache
+            raise ValueError(
+                f"prompt length {len(prompt_tokens)} must be < max_len-1 "
+                f"({self.max_len - 1}); raise max_len or truncate the prompt")
+        return self.sched.submit(list(prompt_tokens), max_new=max_new_tokens)
+
+    def run(self, max_steps: int = 10_000) -> dict[int, list[int]]:
+        """Step until every submitted request completes, or for at most
+        ``max_steps`` steps. Returns {rid: generated tokens} of the
+        requests completed in this call."""
+        results: dict[int, list[int]] = {}
+        for _ in range(max_steps):
+            if not self._admit():
+                break
+            self._tick(results)
+        return results
+
+    @property
+    def steps_executed(self) -> int:
+        return self._steps
+
+    def swap_params(self, new_params) -> None:
+        """Weight hot-swap: copy ``new_params`` (for the XNOR LM, the tuple
+        of ``XnorLMServeModel.swap_arrays``) into the live weight tensors.
+        Every leaf must match in shape, dtype and device; each keeps its
+        storage. In-flight slots continue on the new weights from the next
+        step."""
+        new_params = tuple(new_params)
+        if len(new_params) != len(self.params):
+            raise ValueError(f"params tree structure differs: "
+                             f"{len(self.params)} leaves != {len(new_params)}")
+        for i, (a, b) in enumerate(zip(self.params, new_params)):
+            if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
+                raise ValueError(
+                    f"params leaf {i}: shape/dtype mismatch "
+                    f"{tuple(a.shape)}/{a.dtype} vs {tuple(b.shape)}/"
+                    f"{b.dtype}: a swap must preserve every leaf's shape "
+                    f"and dtype")
+            if a.device != b.device:
+                raise ValueError(f"params leaf {i}: device mismatch "
+                                 f"{a.device} vs {b.device}")
+        with torch.no_grad():
+            for a, b in zip(self.params, new_params):
+                a.copy_(b)
+
+    # ------------------------------------------------------------- internals
+    def _admit(self) -> bool:
+        for i, req in self.sched.admit():
+            self._pending[i] = deque(req.payload)
+            self._pos[i] = 0
+            self.state = self.model.reset_slot(self.state, i, self.n_slots)
+        return self.sched.n_occupied > 0
+
+    def _step(self, tokens: torch.Tensor) -> np.ndarray:
+        logits, self.state = self.model.decode_step(self.params, self.state,
+                                                    tokens)
+        return torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+
+    def _tick(self, results: dict[int, list[int]]) -> None:
+        # the (n_slots, 1) token vector: prompt feed or last output
+        toks = np.zeros((self.n_slots, 1), np.int64)
+        for i, req in self.sched.occupied():
+            if self._pending[i]:
+                toks[i, 0] = self._pending[i][0]
+            elif req.out:
+                toks[i, 0] = req.out[-1]
+            elif req.payload:
+                toks[i, 0] = req.payload[-1]
+        nxt = self._step(torch.from_numpy(toks).to(self.device))
+        self._steps += 1
+        for i, req in self.sched.occupied():
+            if self._pending[i]:
+                self._pending[i].popleft()
+                self._pos[i] += 1
+                if self._pending[i]:
+                    continue                     # still prefilling
+                # prefill just drained: nxt IS the first generated token
+            req.out.append(int(nxt[i]))
+            self._pos[i] += 1
+            if (len(req.out) >= req.max_new or int(nxt[i]) == self.eos
+                    or self._pos[i] >= self.max_len - 1):
+                results[req.rid] = req.out
+                self.sched.complete(i)

@@ -41,7 +41,9 @@ def test_port_imports_no_jax_and_no_reference():
     modules = _port_modules()
     assert {"repro_torch.kernels.ops", "repro_torch.serve.bcnn_engine",
             "repro_torch.launch.serve_bcnn",
-            "repro_torch.core.bcnn_artifact"} <= set(modules)
+            "repro_torch.core.bcnn_artifact", "repro_torch.models.xnor_lm",
+            "repro_torch.serve.engine", "repro_torch.launch.serve",
+            "repro_torch.configs.xnor_lm_tiny"} <= set(modules)
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {modules!r}:\n"
@@ -69,7 +71,8 @@ def test_cuda_entry_points_raise_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points run there")
     from repro_torch.core import bcnn
-    from repro_torch.launch import serve_bcnn
+    from repro_torch.launch import serve, serve_bcnn
+    from repro_torch.models import xnor_lm
     from repro_torch.serve.bcnn_engine import BCNNEngine
     packed = bcnn.fold_model(bcnn.init(torch.Generator().manual_seed(0)))
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -78,6 +81,12 @@ def test_cuda_entry_points_raise_without_gpu():
         bcnn.make_packed_forward(packed)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_bcnn.main(["--requests", "1"])
+    cfg = xnor_lm.XnorLMConfig(vocab_size=32, d_model=32, d_ff=32)
+    lm = xnor_lm.fold(cfg, xnor_lm.init(cfg, torch.Generator().manual_seed(0)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        xnor_lm.make_serving_engine(cfg, lm)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--smoke", "--requests", "1"])
 
 
 def test_init_matches_reference_distributions():
@@ -119,8 +128,8 @@ def test_chip_smoke_names_every_kernel():
     spec.loader.exec_module(mod)
     from repro_torch.kernels import _build
     assert set(mod.SOURCES) == set(_build.SIGNATURES)
-    for source, replaces in mod.SOURCES.values():
+    for name, (source, replaces) in mod.SOURCES.items():
         assert (ROOT / source).is_file()
         path, line = replaces.split(":")
         text = (ROOT / path).read_text().splitlines()[int(line) - 1]
-        assert text.startswith("def xnor_")
+        assert text.startswith(f"def {name}(")

@@ -139,6 +139,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert set(_build.SIGNATURES) == {"xnor_matmul_vpu", "xnor_matmul_mxu",
                                       "xnor_conv2d_vpu", "xnor_conv2d_mxu",
                                       "xnor_conv2d_pair_vpu",
-                                      "xnor_conv2d_pair_mxu"}
+                                      "xnor_conv2d_pair_mxu",
+                                      "binary_weight_matmul"}
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "xnor_matmul.cu", "xnor_conv.cu", "xnor_conv_fused.cu"}
+        "xnor_matmul.cu", "xnor_conv.cu", "xnor_conv_fused.cu",
+        "binary_weight_matmul.cu"}
