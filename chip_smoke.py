@@ -40,6 +40,22 @@ Phases, each fatal on failure (nothing is caught):
    the decode GEMM modes twice on one decode step at 4 slots
    (``autotune_lm_mode``) and require the two to agree; profile one
    decode step.
+6. The dense LM zoo at Qwen3-8B's full width (``configs/qwen3_8b.py``):
+   a two-layer float32 cut on the card against the same port on the CPU
+   (``prefill`` and ``forward_train`` logits, 2 K7 launches per forward),
+   and against its own token-by-token ``decode_step`` on the card; the
+   full 36-layer bf16 model's ``prefill`` at (1, 4096) (36 K7 launches),
+   profiled; the same model served through ``ServingEngine``'s default
+   ``TransformerServeModel`` (16 requests through 4 slots, one request's
+   tokens equal to a hand-rolled decode loop, a mid-run hot-swap of a
+   second seed's weights in place), and one decode step profiled.
+
+Phase 2 also holds K7 (``flash_attention``) against its plain version at
+the dense LM's attention shape (B, Hq, Hkv, hd) = (1, 32, 8, 128), causal,
+S in {128, 1000, 4096}, and at the ragged extras (2, 4, 2, 64) at S = 256
+and (1, 2, 1, 64) at S = 200, both causal settings, in float32 and
+bfloat16 (tolerances ``FLASH_TOL``), and times it against one
+``scaled_dot_product_attention`` call (a yardstick the port never calls).
 
 Phase 2 also holds K1/K2 bit-exact against their plain version at the
 LM's mode-"xnor" shapes (M = 4 per decode step and 16 for the probe,
@@ -76,6 +92,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12          # CUDA cores, no tensor cores
 POPC_PER_CLK_PER_SM = 16
 
 SOURCES = {
@@ -96,6 +113,8 @@ SOURCES = {
     "binary_weight_matmul": (
         "src/repro_torch/kernels/csrc/binary_weight_matmul.cu",
         "src/repro/kernels/xnor_matmul.py:196"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:87"),
 }
 # Table 2 binary convs: (H=W, C, O); FCs: (N, k, thresholds)
 CONV_SHAPES = [(32, 128, 128), (16, 128, 256), (16, 256, 256),
@@ -114,6 +133,31 @@ LM_REQUESTS = 16
 LM_PROMPT = 8
 LM_MAX_NEW = 16
 LM_SWAP_AT = 20          # engine steps before the mid-run hot-swap
+# K7 at the dense LM's attention (Qwen3-8B: 32 query heads over 8 KV heads,
+# hd 128): (B, Hq, Hkv, hd, S, causal); the last S is the main path's
+# prefill. Then ragged extras, both causal settings.
+FLASH_PATH_S = 4096
+FLASH_CASES = [(1, 32, 8, 128, s, True) for s in (128, 1000, FLASH_PATH_S)]
+FLASH_CASES += [(2, 4, 2, 64, 256, c) for c in (True, False)]
+FLASH_CASES += [(1, 2, 1, 64, 200, c) for c in (False, True)]
+# tolerances of tests/test_torch_flash.py: float32 differs from the plain
+# version by the order of its sums (and q scaled before the product, as
+# the TPU kernel does); in bf16 the kernel rounds the unnormalised p and
+# the plain version p / l, a relative 2**-9 on every weight, which shows
+# as an absolute error at the scale of v. So bf16 is allclose at 2e-2, and
+# at most FLASH_ULP_SHARE of the elements may differ by more than one bf16
+# ulp of max(|plain|, FLASH_ULP_FLOOR).
+FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+FLASH_ULP_FLOOR = 0.25
+FLASH_ULP_SHARE = 0.005
+# the dense LM (phase 6)
+DENSE_ARCH = "qwen3-8b"
+DENSE_CPU_TOKENS = (2, 256)      # the two-layer float32 cut, card vs CPU
+DENSE_DECODE_PROMPT = 64         # prefill vs token-by-token decode
+DENSE_TOL = dict(rtol=1e-4, atol=1e-4)
+DENSE_PREFILL = (1, FLASH_PATH_S)
+DENSE_MAX_LEN = 32               # prompt 8 + 16 new tokens fit
 
 
 def check(cond: bool, msg: str) -> None:
@@ -458,14 +502,18 @@ def kernel_phase(bound: Bound) -> dict:
               f"{' (path shape)' if on_path else ''}")
 
     bw_phase(g, dev, bound, stats["binary_weight_matmul"])
+    flash_phase(g, dev, stats["flash_attention"])
 
     for name, s in stats.items():
         s["bound_ms"] = max(s["t_bytes"], s["t_ops"])
         s["bound_by"] = "bytes" if s["t_bytes"] >= s["t_ops"] else "operations"
         lib = ("two cuDNN fp16 convs + max_pool2d" if "pair" in name
                else "torch.mm bf16 -> f32" if name == "binary_weight_matmul"
+               else "SDPA bf16" if name == "flash_attention"
                else "library")
         per = ("LM decode step at 4 slots" if name == "binary_weight_matmul"
+               else f"call at (1, 32, 8, 128), S = {FLASH_PATH_S}, bf16"
+               if name == "flash_attention"
                else f"forward at batch {N_SLOTS}")
         print(f"{name}: per {per}: kernel "
               f"{s['ms']:.4f} ms on the device ({s['call_ms']:.4f} ms per "
@@ -547,6 +595,86 @@ def bw_phase(g, dev, bound: Bound, st: dict) -> None:
     print(f"K6 real-activation max |kernel - plain|: float32 "
           f"{real_err[torch.float32]:.3g}, bfloat16 "
           f"{real_err[torch.bfloat16]:.3g}")
+
+
+def flash_bound(b, hq, hkv, hd, s, causal, dtype):
+    """(bytes ms, operations ms) of one attention call: Q, K and V read
+    once, O written once, at the HBM rate; 4·B·Hq·hd FLOP per kept (query,
+    key) pair (S(S+1)/2 of them when causal) at the dense tensor-core rate
+    of bf16, or at the float32 CUDA-core rate (67 TFLOP/s) for float32."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (2 * b * hq + 2 * b * hkv) * s * hd * esize
+    kept = s * (s + 1) // 2 if causal else s * s
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            4 * b * hq * hd * kept / rate * 1e3)
+
+
+def ulp_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Share of elements off by more than one bf16 ulp of
+    max(|want|, FLASH_ULP_FLOOR)."""
+    mag = want.float().abs().clamp(min=FLASH_ULP_FLOOR)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got.float() - want.float()).abs() > ulp).float().mean())
+
+
+def flash_phase(g, dev, st: dict) -> None:
+    """K7 against its plain version (``FLASH_CASES``, float32 and
+    bfloat16, at ``FLASH_TOL``) and its times at the (1, 32, 8, 128)
+    shapes; the kernels line takes the call at S = ``FLASH_PATH_S`` in
+    bf16, the main path's prefill."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    for b, hq, hkv, hd, s, causal in FLASH_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((b, h, s, hd), generator=g).to(dev, dt)
+                       for h in (hq, hkv, hkv))
+
+            def run(q=q, k=k, v=v, causal=causal):
+                return kfa.flash_attention(q, k, v, causal=causal)
+
+            def plain(q=q, k=k, v=v, causal=causal):
+                return ref.flash_attention_ref(q, k, v, causal=causal)
+
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            check(got.dtype == dt and got.shape == want.shape
+                  and bool(got.isfinite().all()),
+                  f"flash_attention {dt} {(b, hq, hkv, hd, s, causal)}: "
+                  f"{got.dtype}{tuple(got.shape)} or not finite")
+            check(torch.allclose(got.float(), want.float(), **FLASH_TOL[dt]),
+                  f"flash_attention {dt} {(b, hq, hkv, hd, s, causal)}: max "
+                  f"|kernel - plain| = {err:.3g}")
+            share = ulp_share(got, want) if dt == torch.bfloat16 else 0.0
+            check(share <= FLASH_ULP_SHARE,
+                  f"flash_attention bf16 {(b, hq, hkv, hd, s, causal)}: "
+                  f"{share:.4f} of elements off by more than one bf16 ulp")
+            line = (f"K7 vs plain at (B, Hq, Hkv, hd) = {(b, hq, hkv, hd)}, "
+                    f"S = {s}, causal = {causal}, {str(dt)[6:]}: max |err| "
+                    f"{err:.3g}" + (f", {share:.5f} beyond one ulp"
+                                    if dt == torch.bfloat16 else ""))
+            if hq != 32:
+                print(line)
+                continue
+            t_b, t_o = flash_bound(b, hq, hkv, hd, s, causal, dt)
+            d = device_ms(run)
+            plain_ms = device_ms(plain, n=5)
+            lib_ms = device_ms(lambda q=q, k=k, v=v: sdpa(
+                q, k, v, is_causal=causal, enable_gqa=True))
+            print(f"{line}\n  flash_attention: {d:.4g} ms on the device, "
+                  f"bound {max(t_b, t_o):.4g} ms (bytes {t_b:.4g}, "
+                  f"operations {t_o:.4g}), plain {plain_ms:.4g} ms, SDPA "
+                  f"{lib_ms:.4g} ms")
+            if s == FLASH_PATH_S and dt == torch.bfloat16:
+                st.update(ms=d, call_ms=time_ms(run, reps=10),
+                          plain_ms=plain_ms, library_ms=lib_ms, t_bytes=t_b,
+                          t_ops=t_o)
+            del got, want
+    torch.cuda.empty_cache()
 
 
 def build_phase() -> None:
@@ -931,6 +1059,223 @@ def lm_phase() -> int:
     return k6_launches
 
 
+def dense_tree_bytes(params) -> int:
+    from repro_torch.models import transformer
+    return sum(x.numel() * x.element_size()
+               for x in transformer.tree_leaves(params))
+
+
+def profile_call(fn, n: int, what: str) -> tuple[float, float, int]:
+    """Host wall ms per call of ``fn`` (``n`` calls ending in a sync), the
+    profiler's device kernel ms per call, and launches per call; prints
+    them with the device's idle share (1 - kernel time / wall) and the top
+    kernels. A call of the dense LM launches over a thousand kernels, more
+    than ``device_ms``'s sleep gate can queue, so its device time is the
+    profiler's sum of kernel times."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    rows = kernel_rows(fn, n)
+    if not rows:
+        print(f"  {what}: wall {wall_ms:.4f} ms; device time not measured "
+              f"(the profiler recorded no device kernels)")
+        return wall_ms, float("nan"), 0
+    busy = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
+    print(f"  {what}: {launches} launches, wall {wall_ms:.4f} ms, device "
+          f"(kernel sum) {busy:.4f} ms, device idle share "
+          f"{1 - busy / wall_ms:.3f}; top kernels (torch.profiler):")
+    for ms, count, key in rows[:10]:
+        print(f"    {ms:.4f} ms  x{count}  {key[:90]}")
+    return wall_ms, busy, launches
+
+
+def argmax_agrees(got: torch.Tensor, want: torch.Tensor, tol: float):
+    """(positions where the argmax differs although the reference's top-1
+    leads its runner-up by more than 2·tol, positions within that margin).
+    Inside the margin the two orders of summation may pick either."""
+    top2 = want.float().topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * tol
+    differ = got.argmax(-1) != want.argmax(-1)
+    return int((differ & clear).sum()), int((~clear).sum())
+
+
+def dense_phase() -> int:
+    """Phase 6: the dense LM zoo at Qwen3-8B's full width. Returns K7's
+    launch count from the full-depth prefill (the main path's run)."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.slots import latency_stats
+
+    full = configs.get_config(DENSE_ARCH)
+    rng = np.random.default_rng(SEED)
+    dev = torch.device("cuda")
+
+    # --- (a) two layers at full width, float32: card vs the CPU port
+    cfg = full.with_(n_layers=2, dtype="float32")
+    params = tf.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    params_cpu = tf.tree_map(lambda x: x.cpu(), params)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, DENSE_CPU_TOKENS))
+    print(f"[dense] {DENSE_ARCH} cut to 2 layers, float32, "
+          f"{dense_tree_bytes(params) / 1e9:.3f} GB of weights; tokens "
+          f"{DENSE_CPU_TOKENS}")
+    for what in ("prefill", "forward_train"):
+        def on(p, x, what=what):
+            if what == "prefill":
+                return tf.prefill(cfg, p, x)
+            return tf.forward_train(cfg, p, tf.Batch(x, x))[0]
+        kfa.flash_attention.launches = 0
+        got = on(params, toks.to(dev))
+        torch.cuda.synchronize()
+        n_k7 = kfa.flash_attention.launches
+        check(n_k7 == cfg.n_layers, f"[dense {what}] {n_k7} K7 launches, "
+              f"expected {cfg.n_layers}")
+        got = got.cpu()
+        want = on(params_cpu, toks)
+        err = float((got - want).abs().max())
+        check(got.shape == want.shape and bool(got.isfinite().all())
+              and torch.allclose(got, want, **DENSE_TOL),
+              f"[dense {what}] card vs CPU: max |diff| {err:.3g}")
+        bad, near = argmax_agrees(got, want, DENSE_TOL["atol"])
+        check(bad == 0, f"[dense {what}] argmax differs at {bad} positions "
+              f"with a clear top-1")
+        print(f"[dense {what}] card == CPU port: logits {tuple(got.shape)} "
+              f"max |diff| {err:.3g} (rtol = atol = {DENSE_TOL['atol']}), "
+              f"argmax equal ({near} positions within the tie margin), "
+              f"{n_k7} K7 launches")
+    del params_cpu
+
+    # --- (b) prefill (K7) vs feeding the prompt through decode_step
+    prompt = toks[:1, :DENSE_DECODE_PROMPT].to(dev)
+    want = tf.prefill(cfg, params, prompt)[0, -1]
+    state = tf.init_serve_state(cfg, 1, DENSE_DECODE_PROMPT, dev)
+    for i in range(DENSE_DECODE_PROMPT):
+        logits, state = tf.decode_step(cfg, params, state, prompt[:, i:i + 1])
+    got = logits[0, -1]
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, **DENSE_TOL)
+          and int(got.argmax()) == int(want.argmax()),
+          f"[dense] prefill vs decode_step on the card: max |diff| {err:.3g}")
+    print(f"[dense] prefill == {DENSE_DECODE_PROMPT} decode steps on the "
+          f"card: last logits max |diff| {err:.3g}, argmax equal")
+    del params, state, logits
+    torch.cuda.empty_cache()
+
+    # --- (c) full depth and width, bf16: prefill at (1, 4096)
+    t0 = time.perf_counter()
+    params = tf.init_params(
+        full, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_par = sum(x.numel() for x in tf.tree_leaves(params))
+    # ModelConfig.param_count leaves out the norm scales
+    n_norm = full.n_layers * (2 * full.d_model + 2 * full.head_dim
+                              * full.qk_norm) + full.d_model
+    print(f"[dense] full {DENSE_ARCH}: {full.n_layers} layers, {n_par:,} "
+          f"parameters ({full.param_count():,} counted by the config + "
+          f"{n_norm:,} norm scales), {dense_tree_bytes(params) / 1e9:.3f} GB,"
+          f" made on the card in {time.perf_counter() - t0:.1f} s")
+    check(n_par == full.param_count() + n_norm,
+          "parameter count differs from the config's")
+    toks = torch.from_numpy(rng.integers(0, full.vocab_size,
+                                         DENSE_PREFILL)).to(dev)
+
+    def prefill():
+        return tf.prefill(full, params, toks)
+
+    prefill()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kfa.flash_attention.launches = 0
+    logits = prefill()
+    torch.cuda.synchronize()
+    k7_launches = kfa.flash_attention.launches
+    check(k7_launches == full.n_layers, f"[dense prefill] {k7_launches} K7 "
+          f"launches, expected {full.n_layers}")
+    check(logits.shape == (1, 1, full.vocab_size)
+          and bool(logits.isfinite().all()), "[dense prefill] logits "
+          "malformed or not finite")
+    print(f"[dense prefill] {DENSE_PREFILL}: logits finite, {k7_launches} K7 "
+          f"launches, peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB; CUDA events {time_ms(prefill, reps=3, warmup=0):.2f} ms per "
+          f"prefill")
+    profile_call(prefill, 2, f"prefill {DENSE_PREFILL}")
+    del logits
+
+    # --- (d) served through the default TransformerServeModel
+    prompts = [rng.integers(0, full.vocab_size, (LM_PROMPT,)).tolist()
+               for _ in range(LM_REQUESTS)]
+    eng = ServingEngine(full, params, n_slots=N_SLOTS, max_len=DENSE_MAX_LEN,
+                        device=dev)
+    model = eng.model
+    del params                         # the engine holds its own copy
+    torch.cuda.empty_cache()
+    kfa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    rids = [eng.submit(pr, max_new_tokens=LM_MAX_NEW) for pr in prompts]
+    out = eng.run()
+    dt = time.perf_counter() - t0
+    check(sorted(out) == sorted(rids) and all(
+        len(out[r]) == LM_MAX_NEW for r in rids), "[dense serve] requests "
+        "lost or short")
+    check(kfa.flash_attention.launches == 0, "[dense serve] the decode path "
+          "launched K7")
+    toks0 = out[rids[0]]
+    # the same prompt alone in slot 0, the other slots idle, stepped by hand
+    state = model.init_state(N_SLOTS, DENSE_MAX_LEN)
+    feed = torch.zeros((N_SLOTS, 1), dtype=torch.int64, device=dev)
+    alone: list[int] = []
+    for i in range(LM_PROMPT + LM_MAX_NEW - 1):
+        feed[0, 0] = prompts[0][i] if i < LM_PROMPT else alone[-1]
+        logits, state = model.decode_step(eng.params, state, feed)
+        if i >= LM_PROMPT - 1:
+            alone.append(int(torch.argmax(logits[0, -1])))
+    check(alone == toks0, f"[dense serve] request 0's tokens {toks0} differ "
+          f"from a hand-rolled decode loop {alone}")
+    st = latency_stats(eng.sched.finished)
+    n_tok = sum(len(v) for v in out.values())
+    steps = eng.steps_executed
+    print(f"[dense serve] {LM_REQUESTS} requests (prompt {LM_PROMPT}, "
+          f"{LM_MAX_NEW} new) through {N_SLOTS} slots in {steps} steps; "
+          f"request 0 equals a hand-rolled decode loop; indicative only: "
+          f"{n_tok / dt:.1f} tok/s, p50 {st['p50'] * 1e3:.1f} ms, p99 "
+          f"{st['p99'] * 1e3:.1f} ms, {dt * 1e3 / steps:.2f} ms per step")
+    state = model.init_state(N_SLOTS, DENSE_MAX_LEN)
+    feed.zero_()
+    profile_call(lambda: model.decode_step(eng.params, state, feed), 3,
+                 f"decode step at {N_SLOTS} slots")
+    del state, logits
+
+    # hot-swap a second seed's weights mid-run, in place
+    rids = [eng.submit(pr, max_new_tokens=LM_MAX_NEW) for pr in prompts]
+    out2 = eng.run(max_steps=LM_SWAP_AT)
+    ptrs = [x.data_ptr() for x in eng.params]
+    new = model.swap_arrays(tf.init_params(
+        full, torch.Generator(device=dev).manual_seed(SEED + 1), dev))
+    eng.swap_params(new)
+    del new
+    torch.cuda.empty_cache()
+    check([x.data_ptr() for x in eng.params] == ptrs,
+          "[dense swap] a weight tensor changed storage")
+    out2.update(eng.run())
+    check(sorted(out2) == sorted(rids) and all(
+        len(out2[r]) == LM_MAX_NEW for r in rids), "[dense swap] requests "
+        "lost or short")
+    changed = sum(out2[r] != out[r0] for r, r0 in zip(rids, sorted(out)))
+    check(changed > 0, "[dense swap] the swap changed no token")
+    print(f"[dense swap] hot-swap after {LM_SWAP_AT} steps: all "
+          f"{len(ptrs)} weight tensors kept their storage; {changed} of "
+          f"{LM_REQUESTS} requests' tokens changed")
+    print(f"card: {smi('name,power.limit')}")
+    return k7_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -950,6 +1295,7 @@ def main() -> int:
     launches = serve_phase(reference)
     tune_phase(reference)
     launches["binary_weight_matmul"] = lm_phase()
+    launches["flash_attention"] = dense_phase()
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         s = stats[name]

@@ -1,20 +1,53 @@
 """Model configurations of the port, and the registry that resolves
-``launch/serve.py --arch <id>`` (counterpart of ``repro/configs``). Only
-the binary LM is registered: the published-architecture table comes with
-the LM zoo."""
+``launch/serve.py --arch <id>`` (counterpart of ``repro/configs``).
+
+``ARCH_MODULES`` holds the published architectures the port runs (the
+dense family of ``models/transformer.py``); ``BINARY_LM_MODULES`` the XNOR
+LM (``models/xnor_lm.py``). The reference's other architectures raise
+``KeyError`` until their family is ported.
+"""
 from __future__ import annotations
 
 import importlib
+
+ARCH_MODULES = {
+    "glm4-9b": "repro_torch.configs.glm4_9b",
+    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
+    "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "yi-6b": "repro_torch.configs.yi_6b",
+}
+
+ARCH_NAMES = tuple(ARCH_MODULES)
 
 BINARY_LM_MODULES = {
     "xnor-lm-tiny": "repro_torch.configs.xnor_lm_tiny",
 }
 
+# the reference's architectures whose family (MLA/MoE, SSM, hybrid, vision
+# and audio stubs) the port does not have yet
+NOT_PORTED = ("deepseek-v2-lite-16b", "deepseek-v2-236b", "rwkv6-3b",
+              "zamba2-7b", "phi-3-vision-4.2b", "whisper-medium")
 
-def get_config(name: str, *, smoke: bool = False):
-    """CONFIG (or SMOKE_CONFIG with ``smoke``) of the registered ``name``."""
-    if name not in BINARY_LM_MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: "
-                       f"{sorted(BINARY_LM_MODULES)}")
-    m = importlib.import_module(BINARY_LM_MODULES[name])
-    return m.SMOKE_CONFIG if smoke else m.CONFIG
+
+def _mod(name: str):
+    if name in ARCH_MODULES:
+        return importlib.import_module(ARCH_MODULES[name])
+    if name in BINARY_LM_MODULES:
+        return importlib.import_module(BINARY_LM_MODULES[name])
+    if name in NOT_PORTED:
+        raise KeyError(f"arch {name!r} is not ported yet, see ROADMAP "
+                       f"queue 1")
+    raise KeyError(f"unknown arch {name!r}; known: "
+                   f"{sorted(ARCH_MODULES) + sorted(BINARY_LM_MODULES)}")
+
+
+def get_config(name: str, *, smoke: bool = False, quant: str = "none"):
+    """CONFIG (or SMOKE_CONFIG with ``smoke``) of the registered ``name``;
+    ``quant`` replaces a transformer config's quant mode (the XNOR LM is
+    binary by construction and ignores it)."""
+    m = _mod(name)
+    cfg = m.SMOKE_CONFIG if smoke else m.CONFIG
+    if quant != "none" and name not in BINARY_LM_MODULES:
+        cfg = cfg.with_(quant=quant)
+    return cfg
+

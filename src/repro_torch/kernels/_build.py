@@ -34,6 +34,8 @@ _CONV_ARGS = [_P] * 5 + [_I] * 13 + [_P]
 _PAIR_ARGS = [_P] * 8 + [_I] * 15 + [_P]
 # a, w, scale, out, M, N, Kw, a_bf16, stream
 _BW_ARGS = [_P] * 4 + [_I] * 4 + [_P]
+# q, k, v, out, B, Hq, Hkv, S, hd, causal, bf16, scale (float32), stream
+_FLASH_ARGS = [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P]
 SIGNATURES = {
     "xnor_matmul_vpu": _MATMUL_ARGS,
     "xnor_matmul_mxu": _MATMUL_ARGS,
@@ -42,6 +44,7 @@ SIGNATURES = {
     "xnor_conv2d_pair_vpu": _PAIR_ARGS,
     "xnor_conv2d_pair_mxu": _PAIR_ARGS,
     "binary_weight_matmul": _BW_ARGS,
+    "flash_attention": _FLASH_ARGS,
 }
 
 

@@ -1,6 +1,6 @@
-"""Public binary matmul / conv entry points (counterpart of
-``repro/kernels/ops.py``), with the reference signatures, output dtypes
-and padding rules.
+"""Public kernel entry points (counterpart of ``repro/kernels/ops.py``):
+the binary matmuls and convs, with the reference signatures, output dtypes
+and padding rules, and flash attention.
 
 Dispatch is by the tensor's device:
 
@@ -10,8 +10,9 @@ Dispatch is by the tensor's device:
 * CUDA tensor — ``"vpu"`` launches K1/K3/K5 (XNOR + popcount on the CUDA
   cores), ``"mxu"`` launches K2/K4/K5 (±1 int8 on the tensor cores), and
   ``"xla"`` raises: the plain version is reached on the card only by
-  calling ``kernels/ref.py`` directly. ``binary_weight_matmul`` has one
-  kernel (K6) and no ``path``. No ``try`` falls back from a kernel.
+  calling ``kernels/ref.py`` directly. ``binary_weight_matmul`` (K6) and
+  ``flash_attention`` (K7) have one kernel each and no ``path``. No
+  ``try`` falls back from a kernel.
 
 Padding: pad bits are 0 (−1) in both operands and agree, so the kernels
 subtract ``n_pad = Kw·32 − k`` (``L·32 − k`` for the per-position conv
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bitpack
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ref
 from repro_torch.kernels import xnor_conv as kconv
 from repro_torch.kernels import xnor_conv_fused as kfused
@@ -217,3 +219,23 @@ def binary_weight_matmul(a: torch.Tensor, w_words: torch.Tensor, *, k: int,
     else:
         y = ref.binary_weight_matmul_ref(a2, w_words, s)
     return y.reshape(*lead, n)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """Softmax attention, head-major (B, Hq, S, hd) queries over (B, Hkv,
+    S, hd) keys and values (GQA: query head h reads kv head h // (Hq /
+    Hkv)) → (B, Hq, S, hd) in q's dtype; ``causal`` applies the
+    lower-triangular mask. float32 or bfloat16, hd <= 256.
+
+    Nothing is padded: keys are masked at the true S (the reference's
+    wrapper pads S to its block grid and, with ``causal=False``, lets the
+    zero pad keys into the softmax; this does not). On the card this
+    launches K7; on a CPU tensor it runs ``kernels/ref.py::
+    flash_attention_ref``.
+    """
+    kfa.check_inputs(q, k, v)
+    if q.is_cuda:
+        return kfa.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal)
+    return ref.flash_attention_ref(q, k, v, causal=causal)

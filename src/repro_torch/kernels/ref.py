@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the binary kernels (counterpart of
+"""Plain PyTorch versions of the kernels (counterpart of
 ``repro/kernels/ref.py``).
 
 They are what every wrapper in ``kernels/ops.py`` runs on a CPU tensor,
@@ -14,7 +14,8 @@ products are exact, so only the order of the float32 sums can differ
 from the kernel's. On a CUDA tensor the product goes to cuBLAS, so a caller
 there keeps float32 accumulation: ``chip_smoke.py`` turns TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, the PyTorch default)
-before it calls these.
+before it calls these. ``flash_attention_ref`` (K7) is dense softmax
+attention with float32 scores and softmax.
 """
 from __future__ import annotations
 
@@ -110,3 +111,30 @@ def xnor_conv2d_pair_ref(a_bits: torch.Tensor, wa_bits: torch.Tensor,
                                                       w // 2, 2, o)
     return torch.where(thr_b_flip.to(torch.bool)[None, None, None, :],
                        win.amin(dim=(2, 4)), win.amax(dim=(2, 4)))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """Dense softmax attention, the plain version of K7 (a copy of the
+    reference's oracle).
+
+    q: (B, Hq, S, hd); k/v: (B, Hkv, S, hd) with Hq % Hkv == 0. Scores and
+    softmax in float32; ``p / l`` cast to v's dtype for the product with
+    V; ``causal`` applies the lower-triangular mask. Every key is one of
+    the true S (nothing is padded). Returns (B, Hq, S, hd) in q's dtype.
+    """
+    s, hd = q.shape[2], q.shape[3]
+    g = q.shape[1] // k.shape[1]
+    kr = torch.repeat_interleave(k, g, dim=1)
+    vr = torch.repeat_interleave(v, g, dim=1)
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                      kr.to(torch.float32)) * hd ** -0.5
+    if causal:
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                     device=q.device))
+        sc = torch.where(mask[None, None], sc, -1e30)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", (p / l).to(vr.dtype), vr)
+    return out.to(q.dtype)

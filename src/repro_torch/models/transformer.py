@@ -1,0 +1,247 @@
+"""Model assembly of the LM zoo, dense family (counterpart of
+``repro/models/transformer.py``).
+
+dense : [norm → GQA attention → norm → MLP] × L
+
+Layers are weight-stacked along a leading layer axis, as in the reference
+(``"stack0_dense_attn"``), and applied by a Python loop over that axis
+where the reference scans. Every layer's full-sequence attention is
+``models/attention.py::gqa_forward``, so on the card ``forward_train`` and
+``prefill`` launch K7 once per layer. Serving steps one token per slot
+through ``decode_step``, which updates the per-layer caches in place.
+
+The other families (moe, ssm, hybrid, vlm, audio) raise
+``NotImplementedError`` until they are ported (ROADMAP queue 1). Training
+(``loss_fn`` and the backward) comes with the training slice.
+
+Entry points (functions of (cfg, params, …)):
+    init_params   forward_hidden   forward_train   prefill
+    init_serve_state   decode_step   params_from_numpy   numpy_params
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.models import attention, layers
+
+
+def _dtype(cfg):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _check_family(cfg) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
+            f"port runs the dense family, see ROADMAP queue 1")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _block_init(generator: torch.Generator, cfg, layer_kind: str,
+                device) -> dict:
+    if layer_kind != "dense_attn":
+        raise NotImplementedError(f"layer kind {layer_kind!r} is not ported "
+                                  f"yet, see ROADMAP queue 1")
+    dt = _dtype(cfg)
+    return {"ln1": layers.norm_init(cfg.d_model, cfg.norm_type, device),
+            "attn": attention.attn_init(generator, cfg, dt, device),
+            "ln2": layers.norm_init(cfg.d_model, cfg.norm_type, device),
+            "mlp": layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                   cfg.mlp_type, dt, device)}
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of the same structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _stack_init(generator: torch.Generator, cfg, layer_kind: str, n: int,
+                device) -> dict:
+    """Init n layers into tensors with a leading layer axis. Each layer is
+    made and copied in turn, so only one unstacked layer is alive."""
+    first = _block_init(generator, cfg, layer_kind, device)
+    stack = tree_map(lambda a: torch.empty((n, *a.shape), dtype=a.dtype,
+                                           device=a.device), first)
+    layer = first
+    for i in range(n):
+        if i:
+            layer = _block_init(generator, cfg, layer_kind, device)
+        tree_map(lambda dst, src: dst[i].copy_(src), stack, layer)
+    return stack
+
+
+def _layer_plan(cfg) -> list[tuple[str, int]]:
+    """[(layer_kind, count)] segments of the decoder stack."""
+    _check_family(cfg)
+    return [("dense_attn", cfg.n_layers)]
+
+
+def init_params(cfg, generator: torch.Generator, device="cpu") -> dict:
+    """The reference's ``init_params`` tree (same keys, shapes and dtypes;
+    weights in the config's dtype, norm scales in float32) from
+    ``generator``, on ``device``. Draws happen on the generator's device:
+    pass a CUDA generator to build a full-size model on the card."""
+    _check_family(cfg)
+    dt = _dtype(cfg)
+    params: dict[str, Any] = {
+        "embed": layers.embed_init(generator, cfg.vocab_size, cfg.d_model,
+                                   dt, device),
+        "final_norm": layers.norm_init(cfg.d_model, cfg.norm_type, device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = layers.dense_init(generator, cfg.d_model,
+                                           cfg.vocab_size, dt, device)
+    for i, (kind, count) in enumerate(_layer_plan(cfg)):
+        params[f"stack{i}_{kind}"] = _stack_init(generator, cfg, kind, count,
+                                                 device)
+    return params
+
+
+def params_from_numpy(cfg, tree: dict, device="cpu") -> dict:
+    """The reference's ``init_params`` tree with numpy leaves → the port's
+    tree on ``device``. bfloat16 leaves (``ml_dtypes``, which
+    ``torch.from_numpy`` cannot take) go through float32 to the config's
+    dtype, which is lossless; every other leaf keeps its dtype."""
+    _check_family(cfg)
+
+    def leaf(a) -> torch.Tensor:
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(device,
+                                                              _dtype(cfg))
+        return torch.from_numpy(np.array(a)).to(device)
+    return tree_map(leaf, tree)
+
+
+def numpy_params(tree: dict) -> dict:
+    """The reverse of ``params_from_numpy``: numpy leaves on the host,
+    bfloat16 as float32 (lossless), every other dtype kept."""
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.detach().cpu().numpy()
+    return tree_map(leaf, tree)
+
+
+def tree_leaves(tree: dict) -> list[torch.Tensor]:
+    """The leaves of a parameter tree in a fixed (insertion) order."""
+    out: list[torch.Tensor] = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like: dict, leaves) -> dict:
+    """A tree shaped as ``like`` holding ``leaves`` (``tree_leaves``
+    order)."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (training & prefill share it)
+# ---------------------------------------------------------------------------
+
+def _apply_dense_attn(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+                      causal: bool = True) -> torch.Tensor:
+    h = layers.apply_norm(p["ln1"], x, cfg.norm_type)
+    x = x + attention.gqa_forward(p["attn"], cfg, h, positions, causal=causal)
+    h = layers.apply_norm(p["ln2"], x, cfg.norm_type)
+    return x + layers.mlp_apply(p["mlp"], h, cfg.mlp_type, cfg.quant)
+
+
+def _layer(stack: dict, i: int) -> dict:
+    return tree_map(lambda a: a[i], stack)
+
+
+def _decoder_stack(cfg, params: dict, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """Run the decoder layer stack, one layer of the stacked tree at a
+    time."""
+    stack = params["stack0_dense_attn"]
+    for i in range(cfg.n_layers):
+        x = _apply_dense_attn(_layer(stack, i), cfg, x, positions)
+    return x
+
+
+class Batch(NamedTuple):
+    tokens: torch.Tensor                 # (B, S) int
+    targets: torch.Tensor                # (B, S) int
+    frontend: torch.Tensor | None = None  # stub patch/frame embeds (unused)
+
+
+def _head(params: dict) -> dict:
+    return params.get("head", {"w": params["embed"]["embedding"].T})
+
+
+def forward_hidden(cfg, params: dict, batch: Batch):
+    """Full-sequence causal forward → (final hidden states, aux_loss)."""
+    _check_family(cfg)
+    x = layers.embed_lookup(params["embed"], batch.tokens)
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = _decoder_stack(cfg, params, x, pos)
+    x = layers.apply_norm(params["final_norm"], x, cfg.norm_type)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_train(cfg, params: dict, batch: Batch):
+    """Full-sequence causal forward → ((B, S, vocab) logits, aux_loss)."""
+    x, aux = forward_hidden(cfg, params, batch)
+    return layers.logits_head(_head(params), x), aux
+
+
+def prefill(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence prefill → (B, 1, vocab) last-position logits (the
+    cache fill is elided, as in the reference; serving feeds prompts
+    through ``decode_step``)."""
+    x, _ = forward_hidden(cfg, params, Batch(tokens=tokens, targets=tokens))
+    return layers.logits_head(_head(params), x[:, -1:, :])
+
+
+# ---------------------------------------------------------------------------
+# serving: decode
+# ---------------------------------------------------------------------------
+
+class ServeState(NamedTuple):
+    caches: attention.KVCache   # stacked per layer: (L, B, S_max, KV, hd) K/V,
+                                # (L, B) lengths
+    enc_kv: Any                 # cross K/V of the audio family (None here)
+    length: torch.Tensor        # scalar int64 — steps taken
+
+
+def init_serve_state(cfg, batch: int, max_len: int,
+                     device="cpu") -> ServeState:
+    _check_family(cfg)
+    per = attention.init_cache(cfg, batch, max_len, _dtype(cfg), device)
+    caches = attention.KVCache(*(a.expand(cfg.n_layers, *a.shape).contiguous()
+                                 for a in per))
+    return ServeState(caches, None,
+                      torch.zeros((), dtype=torch.int64, device=device))
+
+
+def decode_step(cfg, params: dict, state: ServeState, tokens: torch.Tensor):
+    """One decode step with a filled cache: (B, 1) tokens → ((B, 1, vocab)
+    logits, state). Updates every layer's cache and the step count in place
+    and returns the same state."""
+    _check_family(cfg)
+    x = layers.embed_lookup(params["embed"], tokens)
+    stack = params["stack0_dense_attn"]
+    c = state.caches
+    for i in range(cfg.n_layers):
+        p = _layer(stack, i)
+        h = layers.apply_norm(p["ln1"], x, cfg.norm_type)
+        y, _ = attention.gqa_decode_step(
+            p["attn"], cfg, h, attention.KVCache(c.k[i], c.v[i], c.length[i]))
+        x = x + y
+        h = layers.apply_norm(p["ln2"], x, cfg.norm_type)
+        x = x + layers.mlp_apply(p["mlp"], h, cfg.mlp_type, cfg.quant)
+    state.length.add_(1)
+    x = layers.apply_norm(params["final_norm"], x, cfg.norm_type)
+    return layers.logits_head(_head(params), x), state

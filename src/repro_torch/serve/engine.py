@@ -14,14 +14,15 @@ joins a slot the moment one frees up instead of waiting for a batch:
   tokens are always an ``(n_slots, 1)`` tensor on the engine's device.
 
 The model behind the step is an adapter with ``init_state`` /
-``decode_step`` / ``reset_slot`` and a ``device``;
-``models/xnor_lm.py::XnorLMServeModel`` is the one the port has (the
-reference's default ``TransformerServeModel`` and its audio path come
-with the LM zoo). The reference jit-compiles the step once and donates
-the state; here the step runs eagerly and the adapter updates the state
-in place. ``swap_params`` copies new weights into the live tensors, the
-counterpart of the reference's swap without a recompile: every weight
-keeps its storage.
+``decode_step`` / ``reset_slot`` and a ``device``. The default,
+``TransformerServeModel``, serves the dense LM zoo of
+``models/transformer.py``; ``models/xnor_lm.py::XnorLMServeModel`` plugs
+in the packed XNOR LM (the reference's audio path comes with that
+family). The reference jit-compiles the step once and donates the state;
+here the step runs eagerly and the adapter updates the state in place.
+``swap_params`` copies new weights into the live tensors, the counterpart
+of the reference's swap without a recompile: every weight keeps its
+storage.
 """
 from __future__ import annotations
 
@@ -30,12 +31,71 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.core.execution_plan import resolve_device
+from repro_torch.models import transformer
 from repro_torch.serve.slots import SlotScheduler
 
 
+class TransformerServeModel:
+    """Default model adapter: the dense family of ``models/transformer.py``.
+
+    Holds copies of ``params`` on its device (a hot-swap overwrites those,
+    never the caller's tree); ``arrays`` is their flat tuple, the engine's
+    ``params``, and ``decode_step`` rebuilds the tree around whatever
+    tensors it is given, so weights copied in by ``ServingEngine.
+    swap_params`` take effect on the next step.
+    """
+
+    def __init__(self, cfg, params: dict, *, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._spec = _spec(params)      # structure, shapes, dtypes only
+        # a hot-swap overwrites these in place: copies, never the caller's
+        self.arrays = tuple(t.to(self.device, copy=True)
+                            for t in transformer.tree_leaves(params))
+
+    def init_state(self, n_slots: int, max_len: int):
+        return transformer.init_serve_state(self.cfg, n_slots, max_len,
+                                            self.device)
+
+    def decode_step(self, arrays, state, tokens):
+        return transformer.decode_step(
+            self.cfg, transformer.tree_unflatten(self._spec, arrays), state,
+            tokens)
+
+    def reset_slot(self, state, i: int, n_slots: int):
+        """Zero slot ``i`` of every layer's cache and length, in place."""
+        state.caches.k[:, i].zero_()
+        state.caches.v[:, i].zero_()
+        state.caches.length[:, i] = 0
+        return state
+
+    def swap_arrays(self, new_params: dict) -> tuple:
+        """Check that ``new_params`` has the served tree's structure,
+        shapes and dtypes, and return its leaves on the model's device for
+        ``ServingEngine.swap_params``."""
+        if _spec(new_params) != self._spec:
+            raise ValueError(
+                f"params tree differs from the served model's in structure, "
+                f"shape or dtype: {_spec(new_params)} != {self._spec}")
+        return tuple(t.to(self.device)
+                     for t in transformer.tree_leaves(new_params))
+
+
+def _spec(params: dict) -> dict:
+    return transformer.tree_map(lambda t: (tuple(t.shape), t.dtype), params)
+
+
 class ServingEngine:
-    def __init__(self, cfg, params, *, model, n_slots: int = 8,
-                 max_len: int = 512, eos_id: int = -1):
+    def __init__(self, cfg, params, *, model=None, n_slots: int = 8,
+                 max_len: int = 512, eos_id: int = -1, device="cuda"):
+        """``params``: the model's flat weight tuple, or, with no
+        ``model``, a ``models/transformer.py`` tree, which the default
+        ``TransformerServeModel`` copies to ``device`` (the GPU unless
+        ``device="cpu"``; raises without one)."""
+        if model is None:
+            model = TransformerServeModel(cfg, params, device=device)
+            params = model.arrays
         self.cfg, self.params = cfg, tuple(params)
         self.n_slots, self.max_len, self.eos = n_slots, max_len, eos_id
         self.model = model
@@ -74,8 +134,8 @@ class ServingEngine:
         return self._steps
 
     def swap_params(self, new_params) -> None:
-        """Weight hot-swap: copy ``new_params`` (for the XNOR LM, the tuple
-        of ``XnorLMServeModel.swap_arrays``) into the live weight tensors.
+        """Weight hot-swap: copy ``new_params`` (the tuple of the model's
+        ``swap_arrays``) into the live weight tensors.
         Every leaf must match in shape, dtype and device; each keeps its
         storage. In-flight slots continue on the new weights from the next
         step."""

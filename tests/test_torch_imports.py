@@ -43,7 +43,13 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.launch.serve_bcnn",
             "repro_torch.core.bcnn_artifact", "repro_torch.models.xnor_lm",
             "repro_torch.serve.engine", "repro_torch.launch.serve",
-            "repro_torch.configs.xnor_lm_tiny"} <= set(modules)
+            "repro_torch.configs.xnor_lm_tiny",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.models.layers", "repro_torch.models.attention",
+            "repro_torch.models.transformer", "repro_torch.configs.base",
+            "repro_torch.configs.qwen3_8b", "repro_torch.configs.yi_6b",
+            "repro_torch.configs.glm4_9b",
+            "repro_torch.configs.phi4_mini_3_8b"} <= set(modules)
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {modules!r}:\n"
@@ -87,6 +93,15 @@ def test_cuda_entry_points_raise_without_gpu():
         xnor_lm.make_serving_engine(cfg, lm)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--smoke", "--requests", "1"])
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServingEngine
+    dense = configs.get_config("qwen3-8b", smoke=True)
+    params = transformer.init_params(dense, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(dense, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen3-8b", "--smoke", "--requests", "1"])
 
 
 def test_init_matches_reference_distributions():

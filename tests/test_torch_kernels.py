@@ -140,7 +140,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
                                       "xnor_conv2d_vpu", "xnor_conv2d_mxu",
                                       "xnor_conv2d_pair_vpu",
                                       "xnor_conv2d_pair_mxu",
-                                      "binary_weight_matmul"}
+                                      "binary_weight_matmul",
+                                      "flash_attention"}
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "xnor_matmul.cu", "xnor_conv.cu", "xnor_conv_fused.cu",
-        "binary_weight_matmul.cu"}
+        "binary_weight_matmul.cu", "flash_attention.cu"}

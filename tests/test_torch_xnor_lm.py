@@ -103,8 +103,10 @@ def test_config_checks_and_param_count_match_reference():
     assert (tiny.vocab_size, tiny.d_model, tiny.n_layers, tiny.n_heads,
             tiny.d_ff, tiny.max_len) == (256, 128, 4, 4, 256, 256)
     assert configs.get_config("xnor-lm-tiny", smoke=True).d_ff == 96
-    with pytest.raises(KeyError):
-        configs.get_config("qwen3-8b")
+    # the dense LM zoo is registered beside it; unported families raise
+    assert configs.get_config("qwen3-8b").family == "dense"
+    with pytest.raises(KeyError, match="not ported yet"):
+        configs.get_config("rwkv6-3b")
 
 
 def test_binarize_matches_reference():
