@@ -42,20 +42,33 @@ Phases, each fatal on failure (nothing is caught):
    decode step.
 6. The dense LM zoo at Qwen3-8B's full width (``configs/qwen3_8b.py``):
    a two-layer float32 cut on the card against the same port on the CPU
-   (``prefill`` and ``forward_train`` logits, 2 K7 launches per forward),
-   and against its own token-by-token ``decode_step`` on the card; the
-   full 36-layer bf16 model's ``prefill`` at (1, 4096) (36 K7 launches),
-   profiled; the same model served through ``ServingEngine``'s default
+   (``prefill`` and ``forward_train`` logits, 2 K7 launches per forward,
+   all of them the CUDA-core variant "simt"), and against its own
+   token-by-token ``decode_step`` on the card; a two-layer bf16 cut's
+   ``prefill`` at (1, 4096), every K7 call ("tc", on the views
+   ``gqa_forward`` hands over) held against the plain version on the same
+   views, and its logits against the same cut with plain attention; the
+   full 36-layer bf16
+   model's ``prefill`` at (1, 4096) (36 K7 launches, all of them the
+   tensor-core variant "tc"), profiled; the same model served through ``ServingEngine``'s default
    ``TransformerServeModel`` (16 requests through 4 slots, one request's
    tokens equal to a hand-rolled decode loop, a mid-run hot-swap of a
    second seed's weights in place), and one decode step profiled.
 
-Phase 2 also holds K7 (``flash_attention``) against its plain version at
-the dense LM's attention shape (B, Hq, Hkv, hd) = (1, 32, 8, 128), causal,
-S in {128, 1000, 4096}, and at the ragged extras (2, 4, 2, 64) at S = 256
-and (1, 2, 1, 64) at S = 200, both causal settings, in float32 and
-bfloat16 (tolerances ``FLASH_TOL``), and times it against one
-``scaled_dot_product_attention`` call (a yardstick the port never calls).
+Phase 2 also holds K7 against its plain version at the dense LM's
+attention shape (B, Hq, Hkv, hd) = (1, 32, 8, 128), causal, S in {128,
+1000, 4096}, and at the ragged extras (2, 4, 2, 64) at S = 256, (1, 2, 1,
+64) at S = 200, both causal settings, and (1, 4, 2, 96) at S = 300, in
+float32 and bfloat16 (tolerances ``FLASH_TOL``), each in the variant
+``pick_variant`` chooses (printed from the launch counters): "tc"
+(``flash_attention_tc``, bf16 at hd 64 / 128) on contiguous tensors and
+on the strided head-major views the model hands over, "simt"
+(``flash_attention``) on everything else. It times each variant at S =
+4096 in the dtype it serves (tc bf16, simt float32) against one
+``scaled_dot_product_attention`` call on the same inputs (a yardstick the
+port never calls), and runs "tc" at the reference's ``prefill_32k``
+length (S = 32768, causal, bf16), which the plain version cannot hold
+(137 GB of scores), against SDPA's output at the bf16 tolerances.
 
 Phase 2 also holds K1/K2 bit-exact against their plain version at the
 LM's mode-"xnor" shapes (M = 4 per decode step and 16 for the probe,
@@ -115,6 +128,9 @@ SOURCES = {
         "src/repro/kernels/xnor_matmul.py:196"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:87"),
+    "flash_attention_tc": (
+        "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+        "src/repro/kernels/flash_attention.py:87"),
 }
 # Table 2 binary convs: (H=W, C, O); FCs: (N, k, thresholds)
 CONV_SHAPES = [(32, 128, 128), (16, 128, 256), (16, 256, 256),
@@ -135,14 +151,20 @@ LM_MAX_NEW = 16
 LM_SWAP_AT = 20          # engine steps before the mid-run hot-swap
 # K7 at the dense LM's attention (Qwen3-8B: 32 query heads over 8 KV heads,
 # hd 128): (B, Hq, Hkv, hd, S, causal); the last S is the main path's
-# prefill. Then ragged extras, both causal settings.
+# prefill. Then ragged extras, both causal settings, and an hd that sends
+# bf16 to the CUDA-core variant.
 FLASH_PATH_S = 4096
 FLASH_CASES = [(1, 32, 8, 128, s, True) for s in (128, 1000, FLASH_PATH_S)]
 FLASH_CASES += [(2, 4, 2, 64, 256, c) for c in (True, False)]
 FLASH_CASES += [(1, 2, 1, 64, 200, c) for c in (False, True)]
+FLASH_CASES += [(1, 4, 2, 96, 300, True)]
+# the reference's prefill_32k length, one sequence: K7 tc vs SDPA
+FLASH_LONG = (1, 32, 8, 128, 32768, True)
+FLASH_NAMES = {"tc": "flash_attention_tc", "simt": "flash_attention"}
 # tolerances of tests/test_torch_flash.py: float32 differs from the plain
 # version by the order of its sums (and q scaled before the product, as
-# the TPU kernel does); in bf16 the kernel rounds the unnormalised p and
+# the TPU kernel does; "tc" scales the float32 scores and runs the softmax
+# in base 2); in bf16 the kernels round the unnormalised p and
 # the plain version p / l, a relative 2**-9 on every weight, which shows
 # as an absolute error at the scale of v. So bf16 is allclose at 2e-2, and
 # at most FLASH_ULP_SHARE of the elements may differ by more than one bf16
@@ -502,18 +524,21 @@ def kernel_phase(bound: Bound) -> dict:
               f"{' (path shape)' if on_path else ''}")
 
     bw_phase(g, dev, bound, stats["binary_weight_matmul"])
-    flash_phase(g, dev, stats["flash_attention"])
+    flash_phase(g, dev, stats)
 
     for name, s in stats.items():
         s["bound_ms"] = max(s["t_bytes"], s["t_ops"])
         s["bound_by"] = "bytes" if s["t_bytes"] >= s["t_ops"] else "operations"
         lib = ("two cuDNN fp16 convs + max_pool2d" if "pair" in name
                else "torch.mm bf16 -> f32" if name == "binary_weight_matmul"
-               else "SDPA bf16" if name == "flash_attention"
+               else "SDPA bf16" if name == FLASH_NAMES["tc"]
+               else "SDPA float32" if name == FLASH_NAMES["simt"]
                else "library")
         per = ("LM decode step at 4 slots" if name == "binary_weight_matmul"
-               else f"call at (1, 32, 8, 128), S = {FLASH_PATH_S}, bf16"
-               if name == "flash_attention"
+               else f"call at (1, 32, 8, 128), S = {FLASH_PATH_S}, bf16 "
+               f"views" if name == FLASH_NAMES["tc"]
+               else f"call at (1, 32, 8, 128), S = {FLASH_PATH_S}, float32"
+               if name == FLASH_NAMES["simt"]
                else f"forward at batch {N_SLOTS}")
         print(f"{name}: per {per}: kernel "
               f"{s['ms']:.4f} ms on the device ({s['call_ms']:.4f} ms per "
@@ -618,62 +643,121 @@ def ulp_share(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got.float() - want.float()).abs() > ulp).float().mean())
 
 
-def flash_phase(g, dev, st: dict) -> None:
-    """K7 against its plain version (``FLASH_CASES``, float32 and
-    bfloat16, at ``FLASH_TOL``) and its times at the (1, 32, 8, 128)
-    shapes; the kernels line takes the call at S = ``FLASH_PATH_S`` in
-    bf16, the main path's prefill."""
+def flash_check(got, want, dt, what: str) -> tuple[float, float]:
+    """Hold one K7 output against ``want`` at ``FLASH_TOL`` (bf16: and at
+    most FLASH_ULP_SHARE of the elements beyond one ulp); returns (max
+    |err|, share beyond one ulp)."""
+    err = float((got.float() - want.float()).abs().max())
+    check(got.dtype == dt and got.shape == want.shape
+          and bool(got.isfinite().all()),
+          f"{what}: {got.dtype}{tuple(got.shape)} or not finite")
+    check(torch.allclose(got.float(), want.float(), **FLASH_TOL[dt]),
+          f"{what}: max |kernel - reference| = {err:.3g}")
+    share = ulp_share(got, want) if dt == torch.bfloat16 else 0.0
+    check(share <= FLASH_ULP_SHARE,
+          f"{what}: {share:.4f} of elements off by more than one bf16 ulp")
+    return err, share
+
+
+def flash_phase(g, dev, stats: dict) -> None:
+    """K7 against its plain version on every ``FLASH_CASES`` row, float32
+    and bfloat16, at ``FLASH_TOL``, in the variant ``pick_variant``
+    chooses, read back from the launch counters. A "tc" row is held twice:
+    on contiguous tensors, and on head-major views ``x.transpose(1, 2)``
+    of (B, S, H, hd) tensors, the layout ``gqa_forward`` hands over, which
+    the kernel's tensor maps read in place. Times the (1, 32, 8, 128) rows
+    (on the views where the variant is "tc") beside the plain version and
+    SDPA on the same inputs; the kernels line takes each variant's call at
+    S = ``FLASH_PATH_S`` in the dtype it serves there (tc: bf16, simt:
+    float32). Then "tc" at ``FLASH_LONG`` against SDPA's output, at the
+    same tolerances."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     for b, hq, hkv, hd, s, causal in FLASH_CASES:
         for dt in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn((b, h, s, hd), generator=g).to(dev, dt)
-                       for h in (hq, hkv, hkv))
+            picked = kfa.pick_variant(dt, hd)
+            name = FLASH_NAMES[picked]
+            case = (f"(B, Hq, Hkv, hd) = {(b, hq, hkv, hd)}, S = {s}, "
+                    f"causal = {causal}, {str(dt)[6:]}")
+            layouts = ["contiguous"] + (["views"] if picked == "tc" else [])
+            for layout in layouts:
+                if layout == "views":
+                    q, k, v = (torch.randn((b, s, h, hd), generator=g).to(
+                        dev, dt).transpose(1, 2) for h in (hq, hkv, hkv))
+                    check(kfa.tma_ready(q) and not q.is_contiguous(),
+                          f"K7 {case}: the views are not read in place")
+                else:
+                    q, k, v = (torch.randn((b, h, s, hd), generator=g).to(
+                        dev, dt) for h in (hq, hkv, hkv))
+                want = ref.flash_attention_ref(q, k, v, causal=causal)
+                n_tc = kfa.flash_attention.launches_tc
+                got = kfa.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                ran = ("tc" if kfa.flash_attention.launches_tc > n_tc
+                       else "simt")
+                check(ran == picked, f"K7 {case} launched {ran}, "
+                      f"pick_variant says {picked}")
+                err, share = flash_check(got, want, dt,
+                                         f"{name} {case} ({layout})")
+                stats[name]["max_abs_err"] = max(
+                    stats[name]["max_abs_err"], err)
+                line = (f"K7 at {case}, {layout}: {picked} (launch "
+                        f"counters), vs plain max |err| {err:.3g}"
+                        + (f", {share:.5f} beyond one ulp"
+                           if dt == torch.bfloat16 else ""))
+                if hq != 32 or layout != layouts[-1]:
+                    print(line)
+                    del got, want, q, k, v
+                    continue
 
-            def run(q=q, k=k, v=v, causal=causal):
-                return kfa.flash_attention(q, k, v, causal=causal)
+                def run():
+                    return kfa.flash_attention(q, k, v, causal=causal)
+                t_b, t_o = flash_bound(b, hq, hkv, hd, s, causal, dt)
+                d = device_ms(run)
+                plain_ms = device_ms(
+                    lambda: ref.flash_attention_ref(q, k, v, causal=causal),
+                    n=5)
+                lib_ms = device_ms(lambda: sdpa(
+                    q, k, v, is_causal=causal, enable_gqa=True))
+                print(f"{line}; {name} {d:.4g} ms on the device, bound "
+                      f"{max(t_b, t_o):.4g} ms (bytes {t_b:.4g}, operations "
+                      f"{t_o:.4g}), plain {plain_ms:.4g} ms, SDPA "
+                      f"{lib_ms:.4g} ms")
+                if s == FLASH_PATH_S:
+                    stats[name].update(
+                        ms=d, call_ms=time_ms(run, reps=10),
+                        plain_ms=plain_ms, library_ms=lib_ms, t_bytes=t_b,
+                        t_ops=t_o)
+                del got, want, q, k, v
+            torch.cuda.empty_cache()
 
-            def plain(q=q, k=k, v=v, causal=causal):
-                return ref.flash_attention_ref(q, k, v, causal=causal)
+    b, hq, hkv, hd, s, causal = FLASH_LONG
+    q, k, v = (torch.randn((b, h, s, hd), generator=g).to(dev, torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    n_tc = kfa.flash_attention.launches_tc
 
-            got, want = run(), plain()
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            st["max_abs_err"] = max(st["max_abs_err"], err)
-            check(got.dtype == dt and got.shape == want.shape
-                  and bool(got.isfinite().all()),
-                  f"flash_attention {dt} {(b, hq, hkv, hd, s, causal)}: "
-                  f"{got.dtype}{tuple(got.shape)} or not finite")
-            check(torch.allclose(got.float(), want.float(), **FLASH_TOL[dt]),
-                  f"flash_attention {dt} {(b, hq, hkv, hd, s, causal)}: max "
-                  f"|kernel - plain| = {err:.3g}")
-            share = ulp_share(got, want) if dt == torch.bfloat16 else 0.0
-            check(share <= FLASH_ULP_SHARE,
-                  f"flash_attention bf16 {(b, hq, hkv, hd, s, causal)}: "
-                  f"{share:.4f} of elements off by more than one bf16 ulp")
-            line = (f"K7 vs plain at (B, Hq, Hkv, hd) = {(b, hq, hkv, hd)}, "
-                    f"S = {s}, causal = {causal}, {str(dt)[6:]}: max |err| "
-                    f"{err:.3g}" + (f", {share:.5f} beyond one ulp"
-                                    if dt == torch.bfloat16 else ""))
-            if hq != 32:
-                print(line)
-                continue
-            t_b, t_o = flash_bound(b, hq, hkv, hd, s, causal, dt)
-            d = device_ms(run)
-            plain_ms = device_ms(plain, n=5)
-            lib_ms = device_ms(lambda q=q, k=k, v=v: sdpa(
-                q, k, v, is_causal=causal, enable_gqa=True))
-            print(f"{line}\n  flash_attention: {d:.4g} ms on the device, "
-                  f"bound {max(t_b, t_o):.4g} ms (bytes {t_b:.4g}, "
-                  f"operations {t_o:.4g}), plain {plain_ms:.4g} ms, SDPA "
-                  f"{lib_ms:.4g} ms")
-            if s == FLASH_PATH_S and dt == torch.bfloat16:
-                st.update(ms=d, call_ms=time_ms(run, reps=10),
-                          plain_ms=plain_ms, library_ms=lib_ms, t_bytes=t_b,
-                          t_ops=t_o)
-            del got, want
+    def run():
+        return kfa.flash_attention(q, k, v, causal=causal)
+
+    def library():
+        return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+
+    got, want = run(), library()
+    torch.cuda.synchronize()
+    check(kfa.flash_attention.launches_tc == n_tc + 1,
+          f"K7 at {FLASH_LONG} did not launch tc")
+    err, share = flash_check(got, want, torch.bfloat16,
+                             f"flash_attention_tc {FLASH_LONG} vs SDPA")
+    del got, want
+    t_b, t_o = flash_bound(b, hq, hkv, hd, s, causal, torch.bfloat16)
+    d, lib_ms = device_ms(run, n=7), device_ms(library, n=7)
+    print(f"K7 tc at {FLASH_LONG} (prefill_32k, one sequence) vs SDPA: max "
+          f"|err| {err:.3g}, {share:.5f} beyond one ulp; {d:.4g} ms on the "
+          f"device, bound {max(t_b, t_o):.4g} ms (operations {t_o:.4g}), "
+          f"SDPA {lib_ms:.4g} ms")
+    del q, k, v
     torch.cuda.empty_cache()
 
 
@@ -1104,9 +1188,78 @@ def argmax_agrees(got: torch.Tensor, want: torch.Tensor, tol: float):
     return int((differ & clear).sum()), int((~clear).sum())
 
 
-def dense_phase() -> int:
+def zero_k7() -> None:
+    from repro_torch.kernels import flash_attention as kfa
+    kfa.flash_attention.launches = 0
+    kfa.flash_attention.launches_tc = 0
+    kfa.flash_attention.launches_simt = 0
+
+
+def bf16_cut(full, rng, dev) -> None:
+    """Two layers of ``full`` at full width, bf16, ``prefill`` at
+    ``DENSE_PREFILL``: every K7 call on the views ``gqa_forward`` hands
+    over ("tc") is held against the plain version on the same views, and
+    the logits against the same cut with plain attention (relative L2 at
+    most the bf16 ``FLASH_TOL`` rtol)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as tf
+
+    cut = full.with_(n_layers=2)
+    params = tf.init_params(
+        cut, torch.Generator(device=dev).manual_seed(SEED), dev)
+    toks = torch.from_numpy(rng.integers(0, cut.vocab_size,
+                                         DENSE_PREFILL)).to(dev)
+    k7 = ops.flash_attention
+    held_calls = []
+
+    def held(q, k, v, *, causal=True):
+        what = f"[dense bf16 cut] layer {len(held_calls)} K7"
+        check(not q.is_contiguous() and all(
+            kfa.tma_ready(t) for t in (q, k, v)),
+            f"{what}: gqa_forward did not hand over tma_ready views")
+        n_tc = kfa.flash_attention.launches_tc
+        out = k7(q, k, v, causal=causal)
+        check(kfa.flash_attention.launches_tc == n_tc + 1,
+              f"{what}: not a tc launch")
+        held_calls.append(flash_check(
+            out, ref.flash_attention_ref(q, k, v, causal=causal),
+            torch.bfloat16, what))
+        return out
+
+    def plain(q, k, v, *, causal=True):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+
+    cut_logits = {}
+    for attn, fn in (("K7 tc", held), ("plain", plain)):
+        ops.flash_attention = fn
+        try:
+            cut_logits[attn] = tf.prefill(cut, params, toks).float()
+        finally:
+            ops.flash_attention = k7
+    got, want = cut_logits["K7 tc"], cut_logits["plain"]
+    rel = float((got - want).norm() / want.norm())
+    check(len(held_calls) == cut.n_layers, f"[dense bf16 cut] "
+          f"{len(held_calls)} K7 calls, expected {cut.n_layers}")
+    check(bool(got.isfinite().all())
+          and rel <= FLASH_TOL[torch.bfloat16]["rtol"],
+          f"[dense bf16 cut] logits through K7 vs plain attention: relative "
+          f"L2 difference {rel:.3g}")
+    print(f"[dense bf16 cut] 2 layers, prefill {DENSE_PREFILL}: each K7 tc "
+          f"call on the views gqa_forward hands over == plain version on "
+          f"them (max |err| {max(e for e, _ in held_calls):.3g}, at most "
+          f"{max(sh for _, sh in held_calls):.5f} beyond one ulp); logits "
+          f"vs plain attention: relative L2 {rel:.3g} (limit "
+          f"{FLASH_TOL[torch.bfloat16]['rtol']}), max |diff| "
+          f"{float((got - want).abs().max()):.3g}, argmax "
+          f"{'equal' if int(got.argmax()) == int(want.argmax()) else 'differs'}")
+
+
+def dense_phase() -> tuple[int, int]:
     """Phase 6: the dense LM zoo at Qwen3-8B's full width. Returns K7's
-    launch count from the full-depth prefill (the main path's run)."""
+    launch counts (simt, tc): "simt" from the float32 two-layer cut's
+    ``prefill``, "tc" from the full-depth bf16 prefill (the main path's
+    run)."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models import transformer as tf
@@ -1131,12 +1284,16 @@ def dense_phase() -> int:
             if what == "prefill":
                 return tf.prefill(cfg, p, x)
             return tf.forward_train(cfg, p, tf.Batch(x, x))[0]
-        kfa.flash_attention.launches = 0
+        zero_k7()
         got = on(params, toks.to(dev))
         torch.cuda.synchronize()
         n_k7 = kfa.flash_attention.launches
-        check(n_k7 == cfg.n_layers, f"[dense {what}] {n_k7} K7 launches, "
-              f"expected {cfg.n_layers}")
+        check(n_k7 == cfg.n_layers == kfa.flash_attention.launches_simt,
+              f"[dense {what}] {n_k7} K7 launches "
+              f"({kfa.flash_attention.launches_simt} simt), expected "
+              f"{cfg.n_layers} simt")
+        if what == "prefill":
+            simt_launches = n_k7
         got = got.cpu()
         want = on(params_cpu, toks)
         err = float((got - want).abs().max())
@@ -1149,7 +1306,7 @@ def dense_phase() -> int:
         print(f"[dense {what}] card == CPU port: logits {tuple(got.shape)} "
               f"max |diff| {err:.3g} (rtol = atol = {DENSE_TOL['atol']}), "
               f"argmax equal ({near} positions within the tie margin), "
-              f"{n_k7} K7 launches")
+              f"{n_k7} K7 launches, all simt")
     del params_cpu
 
     # --- (b) prefill (K7) vs feeding the prompt through decode_step
@@ -1168,7 +1325,11 @@ def dense_phase() -> int:
     del params, state, logits
     torch.cuda.empty_cache()
 
-    # --- (c) full depth and width, bf16: prefill at (1, 4096)
+    # --- (c) two layers at full width, bf16, through K7 tc and plain
+    bf16_cut(full, rng, dev)
+    torch.cuda.empty_cache()
+
+    # --- (d) full depth and width, bf16: prefill at (1, 4096)
     t0 = time.perf_counter()
     params = tf.init_params(
         full, torch.Generator(device=dev).manual_seed(SEED), dev)
@@ -1192,23 +1353,25 @@ def dense_phase() -> int:
     prefill()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kfa.flash_attention.launches = 0
+    zero_k7()
     logits = prefill()
     torch.cuda.synchronize()
     k7_launches = kfa.flash_attention.launches
-    check(k7_launches == full.n_layers, f"[dense prefill] {k7_launches} K7 "
-          f"launches, expected {full.n_layers}")
+    check(k7_launches == full.n_layers == kfa.flash_attention.launches_tc,
+          f"[dense prefill] {k7_launches} K7 launches "
+          f"({kfa.flash_attention.launches_tc} tc), expected "
+          f"{full.n_layers} tc")
     check(logits.shape == (1, 1, full.vocab_size)
           and bool(logits.isfinite().all()), "[dense prefill] logits "
           "malformed or not finite")
     print(f"[dense prefill] {DENSE_PREFILL}: logits finite, {k7_launches} K7 "
-          f"launches, peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f"launches, all tc, peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB; CUDA events {time_ms(prefill, reps=3, warmup=0):.2f} ms per "
           f"prefill")
     profile_call(prefill, 2, f"prefill {DENSE_PREFILL}")
     del logits
 
-    # --- (d) served through the default TransformerServeModel
+    # --- (e) served through the default TransformerServeModel
     prompts = [rng.integers(0, full.vocab_size, (LM_PROMPT,)).tolist()
                for _ in range(LM_REQUESTS)]
     eng = ServingEngine(full, params, n_slots=N_SLOTS, max_len=DENSE_MAX_LEN,
@@ -1216,7 +1379,7 @@ def dense_phase() -> int:
     model = eng.model
     del params                         # the engine holds its own copy
     torch.cuda.empty_cache()
-    kfa.flash_attention.launches = 0
+    zero_k7()
     t0 = time.perf_counter()
     rids = [eng.submit(pr, max_new_tokens=LM_MAX_NEW) for pr in prompts]
     out = eng.run()
@@ -1273,7 +1436,7 @@ def dense_phase() -> int:
           f"{len(ptrs)} weight tensors kept their storage; {changed} of "
           f"{LM_REQUESTS} requests' tokens changed")
     print(f"card: {smi('name,power.limit')}")
-    return k7_launches
+    return simt_launches, k7_launches
 
 
 def main() -> int:
@@ -1295,7 +1458,8 @@ def main() -> int:
     launches = serve_phase(reference)
     tune_phase(reference)
     launches["binary_weight_matmul"] = lm_phase()
-    launches["flash_attention"] = dense_phase()
+    launches["flash_attention"], launches["flash_attention_tc"] = (
+        dense_phase())
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         s = stats[name]

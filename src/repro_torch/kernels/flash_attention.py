@@ -1,13 +1,28 @@
-"""Wrapper of the CUDA flash-attention kernel K7
-(``csrc/flash_attention.cu``).
+"""Wrapper of the CUDA flash-attention kernel K7, in two variants.
 
 ``flash_attention`` (K7) replaces ``repro/kernels/flash_attention.py::
 flash_attention``: causal or non-causal GQA softmax attention with an
 online softmax, over head-major (B, Hq, S, hd) queries and (B, Hkv, S, hd)
 keys and values, float32 or bfloat16, hd <= 256. Keys are masked at the
-true S, so no input is padded. It launches on the current stream,
-allocates only its output, and counts its launches in the plain int
-``flash_attention.launches``. Its plain version is
+true S, so no input is padded. ``pick_variant`` chooses the kernel from
+(dtype, hd) alone:
+
+* "tc" (``csrc/flash_attention_tc.cu``): bf16 at hd 64 or 128, on the
+  tensor cores (wgmma, TMA loads). It reads strided head-major views in
+  place (the last dimension contiguous, the other strides multiples of 8
+  elements, 16-byte aligned; ``tma_ready``), copies any other input, and
+  returns a (B, Hq, S, hd) view of a
+  (B, S, Hq, hd) buffer, the layout the model's output projection reads.
+* "simt" (``csrc/flash_attention.cu``): float32 at every hd, and bf16 at
+  the other hd, on the CUDA cores; it copies a non-contiguous input and
+  returns a contiguous output. float32
+  stays off the tensor cores: TF32 would break the float32 card-vs-CPU
+  check of the full-width model.
+
+Either launches on the current stream, allocates only its output, and
+counts its launches in the plain ints ``flash_attention.launches`` (every
+K7 launch), ``flash_attention.launches_tc`` and
+``flash_attention.launches_simt``. Its plain version is
 ``kernels/ref.py::flash_attention_ref``; ``kernels/ops.py`` runs that on
 CPU tensors.
 """
@@ -18,7 +33,50 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_HEAD_DIM = 256
-MAX_GRID_Y = 65535          # B * Hq blocks on the grid's y axis
+MAX_GRID_Y = 65535          # "simt": B * Hq blocks; "tc": query tiles
+TC_HEAD_DIMS = (64, 128)
+SMEM_PER_BLOCK = 232448     # H100: opt-in shared memory per block (227 KB)
+# Mirrors of csrc/flash_attention_tc.cu: query rows per block, keys per KV
+# tile, depth of the K/V ring
+TC_BM, TC_BN, TC_STAGES = 128, 128, 3
+
+
+def pick_variant(dtype: torch.dtype, hd: int) -> str:
+    """The K7 variant for (dtype, hd): "tc" for bfloat16 at hd 64 or 128,
+    "simt" for float32 at any hd and bfloat16 at any other hd <= 256.
+    Raises ValueError outside K7's contract."""
+    if dtype not in (torch.float32, torch.bfloat16) or not (
+            1 <= hd <= MAX_HEAD_DIM):
+        raise ValueError(f"K7 takes float32 or bfloat16 at 1 <= hd <= "
+                         f"{MAX_HEAD_DIM}, got {dtype} at hd {hd}")
+    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "simt"
+
+
+def tc_smem_bytes(hd: int) -> int:
+    """Shared-memory bytes of one "tc" block (``tc_smem_bytes`` in
+    csrc/flash_attention_tc.cu): 1 KB of alignment slack, the bf16 Q tile
+    (TC_BM x hd), the K/V ring (TC_STAGES x 2 x TC_BN x hd) and
+    1 + 2 x TC_STAGES mbarriers of 8 bytes."""
+    return (1024 + TC_BM * hd * 2 + TC_STAGES * 2 * TC_BN * hd * 2
+            + 8 * (1 + 2 * TC_STAGES))
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """True when the "tc" kernel's tensor maps can read ``t`` in place:
+    last dimension contiguous, the other strides (of dimensions longer
+    than 1) multiples of 8 elements (16 bytes), the data 16-byte
+    aligned."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 and st > 0
+                    for n, st in zip(t.shape[:-1], t.stride()[:-1])
+                    if n > 1))
+
+
+def _map_strides(t: torch.Tensor) -> list[int]:
+    # (batch, head, row) element strides; a dimension of length 1 is never
+    # stepped, so it gets a stride the tensor map accepts
+    return [st if n > 1 else t.shape[-1]
+            for n, st in zip(t.shape[:-1], t.stride()[:-1])]
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -47,30 +105,53 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """K7: q (B, Hq, S, hd), k/v (B, Hkv, S, hd), all contiguous CUDA
-    tensors of one dtype (float32 or bfloat16), Hq % Hkv == 0 → (B, Hq, S,
-    hd) in q's dtype."""
+    """K7: q (B, Hq, S, hd), k/v (B, Hkv, S, hd), CUDA tensors of one
+    dtype (float32 or bfloat16), Hq % Hkv == 0 → (B, Hq, S, hd) in q's
+    dtype, through the variant ``pick_variant`` names. "tc" reads
+    ``tma_ready`` views in place and copies any other input; "simt" copies
+    a non-contiguous input. A "tc" barrier wait that has not completed
+    after 60 s traps, which leaves the CUDA context unusable for the rest
+    of the process."""
     check_inputs(q, k, v)
+    variant = pick_variant(q.dtype, q.shape[3])
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor (the plain "
                              f"version for CPU tensors is kernels/ref.py)")
-        if not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"q, k and v must be contiguous and on one "
-                             f"device, got {name} on {t.device}")
+        if t.device != q.device:
+            raise ValueError(f"q, k and v must be on one device, got {name} "
+                             f"on {t.device}")
     b, hq, s, hd = q.shape
     hkv = k.shape[1]
-    if b * hq > MAX_GRID_Y:
-        raise ValueError(f"B * Hq = {b * hq} > {MAX_GRID_Y}")
-    out = torch.empty_like(q)
+    if variant == "tc":
+        if -(-s // TC_BM) > MAX_GRID_Y:
+            raise ValueError(f"S = {s} needs more than {MAX_GRID_Y} query "
+                             f"tiles of {TC_BM}")
+        q, k, v = (t if tma_ready(t) else t.contiguous() for t in (q, k, v))
+        out = torch.empty((b, s, hq, hd), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+        args = ("flash_attention_tc", q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), b, hq, hkv, s, hd, int(causal),
+                hd ** -0.5, *_map_strides(q), *_map_strides(k),
+                *_map_strides(v), *out.stride()[:3])
+    else:
+        if b * hq > MAX_GRID_Y:
+            raise ValueError(f"B * Hq = {b * hq} > {MAX_GRID_Y}")
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out = torch.empty_like(q)
+        args = ("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), b, hq, hkv, s, hd, int(causal),
+                int(q.dtype == torch.bfloat16), hd ** -0.5)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.launch("flash_attention", q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), out.data_ptr(), b, hq, hkv, s, hd,
-                      int(causal), int(q.dtype == torch.bfloat16),
-                      hd ** -0.5, stream)
+        _build.launch(*args, torch.cuda.current_stream().cuda_stream)
     flash_attention.launches += 1
+    if variant == "tc":
+        flash_attention.launches_tc += 1
+    else:
+        flash_attention.launches_simt += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
+flash_attention.launches_simt = 0

@@ -231,11 +231,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Nothing is padded: keys are masked at the true S (the reference's
     wrapper pads S to its block grid and, with ``causal=False``, lets the
     zero pad keys into the softmax; this does not). On the card this
-    launches K7; on a CPU tensor it runs ``kernels/ref.py::
-    flash_attention_ref``.
+    launches K7 in the variant ``kernels/flash_attention.py::pick_variant``
+    names, which makes the copies its variant needs ("tc" reads strided
+    head-major views in place and may return a non-contiguous view). On a
+    CPU tensor it runs ``kernels/ref.py::flash_attention_ref``.
     """
     kfa.check_inputs(q, k, v)
     if q.is_cuda:
-        return kfa.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=causal)
+        return kfa.flash_attention(q, k, v, causal=causal)
     return ref.flash_attention_ref(q, k, v, causal=causal)

@@ -6,7 +6,10 @@ and the one-token decode step.
   through ``kernels/ops.py::flash_attention``: K7 on a CUDA tensor, where
   the reference takes its TPU branch to the Pallas kernel, and the plain
   version on a CPU tensor. It hands K7 head-major ``(B, H, S, hd)``
-  contiguous copies of q, k and v; GQA is native, K/V are not repeated.
+  views of q, k and v (``transpose(1, 2)``, no copy: the tensor-core
+  variant reads them in place, the CUDA-core one gets copies from
+  ``ops``), and K7 tc's output view transposes back to a contiguous
+  ``(B, S, H, hd)``; GQA is native, K/V are not repeated.
 * ``gqa_decode_step`` attends one token per slot to the cache with a dense
   einsum, as the reference does (no kernel there). It updates the cache in
   place at each slot's own length.
@@ -79,9 +82,8 @@ def gqa_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     _check_window(cfg)
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
-    out = ops.flash_attention(
-        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), causal=causal).transpose(1, 2)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal).transpose(1, 2)
     return layers.dense(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.head_dim),
                         _quant(cfg))
 

@@ -22,9 +22,28 @@ Tolerances:
   at most 0.1 % of the elements not bitwise equal (the two einsums round
   their bf16 sums apart now and then; 0.02 % measured).
 
-The CUDA kernel itself runs only on the card (``chip_smoke.py``); here
-its wrapper must refuse CPU tensors and its launch counter stays 0.
+K7 has two CUDA variants, chosen by ``kernels/flash_attention.py::
+pick_variant`` from (dtype, hd): "tc" (``csrc/flash_attention_tc.cu``, the
+tensor cores, bf16 at hd 64 / 128) and "simt" (``csrc/flash_attention.cu``,
+the CUDA cores, everything else). "tc" changes the order of the
+arithmetic in two ways: the scale multiplies the float32 QK^T
+accumulator instead of q before the product, and the softmax runs in
+base 2, exp2 with log2(e) folded into the scale (c = scale * log2(e),
+m = max(s) * c, p = exp2(fma(s, c, -m))). A plain emulation of that order
+(``_tc_emulation``, in this file and not in the package: key tiles of the
+kernel's TC_BN, p rounded to bf16 before the PV product, l summing the
+float32 p)
+agrees with the Pallas kernel at the bf16 tolerance above, which shows
+the reordering stays inside the contract's tolerance.
+
+The CUDA kernels themselves run only on the card (``chip_smoke.py``);
+here the wrapper must refuse CPU tensors, its launch counters stay 0, and
+the pure parts of the dispatch (``pick_variant``, ``tma_ready``, the
+shared-memory mirror ``tc_smem_bytes``) are checked.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -141,6 +160,153 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kfa.flash_attention(q, k, v)
     assert kfa.flash_attention.launches == 0
+    assert kfa.flash_attention.launches_tc == 0
+    assert kfa.flash_attention.launches_simt == 0
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 96, "simt"), (torch.bfloat16, 16, "simt"),
+    (torch.bfloat16, 256, "simt"), (torch.bfloat16, 1, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 96, "simt"), (torch.float32, 256, "simt"),
+])
+def test_pick_variant(dtype, hd, want):
+    """bf16 at hd 64 / 128 goes to the tensor cores; float32 at any hd and
+    bf16 at any other hd <= 256 to the CUDA cores."""
+    assert kfa.pick_variant(dtype, hd) == want
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float16, 64),
+                                      (torch.bfloat16, 0),
+                                      (torch.bfloat16, 257),
+                                      (torch.float32, 512)])
+def test_pick_variant_raises_outside_contract(dtype, hd):
+    with pytest.raises(ValueError):
+        kfa.pick_variant(dtype, hd)
+
+
+def _tc_constants() -> dict:
+    src = (Path(kfa.__file__).parent / "csrc" /
+           "flash_attention_tc.cu").read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                src).group(1))
+            for name in ("TC_BM", "TC_BN", "TC_STAGES")}
+
+
+@pytest.mark.parametrize("hd", kfa.TC_HEAD_DIMS)
+def test_tc_shared_memory_fits(hd):
+    """The Python mirror of the "tc" block's shared memory reads the tile
+    constants of the CUDA source and fits the H100's 227 KB per block
+    (bf16 staging: 230,456 bytes at hd 128, 115,768 at hd 64)."""
+    assert _tc_constants() == dict(TC_BM=kfa.TC_BM, TC_BN=kfa.TC_BN,
+                                   TC_STAGES=kfa.TC_STAGES)
+    n = kfa.tc_smem_bytes(hd)
+    assert n == (1024 + kfa.TC_BM * hd * 2
+                 + kfa.TC_STAGES * 2 * kfa.TC_BN * hd * 2
+                 + 8 * (1 + 2 * kfa.TC_STAGES))
+    assert n <= kfa.SMEM_PER_BLOCK
+    assert {64: 115768, 128: 230456}[hd] == n
+
+
+def test_tma_ready():
+    """Contiguous tensors and head-major views of (B, S, H, hd) tensors are
+    read in place; a strided last dimension, a row stride that is not a
+    multiple of 8 elements or a misaligned start is not."""
+    x = torch.zeros((2, 40, 4, 64), dtype=torch.bfloat16)
+    assert kfa.tma_ready(x.transpose(1, 2))
+    assert kfa.tma_ready(x.transpose(1, 2).contiguous())
+    assert kfa.tma_ready(torch.zeros((1, 1, 1, 64))[:, :, :1])
+    assert not kfa.tma_ready(x.transpose(1, 3))
+    assert not kfa.tma_ready(torch.zeros((1, 2, 5, 12)))
+    flat = torch.zeros(1 + 2 * 5 * 64, dtype=torch.bfloat16)
+    assert not kfa.tma_ready(flat[1:].view(1, 2, 5, 64))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_entry_point_takes_strided_views(dtype, causal):
+    """``ops.flash_attention`` on head-major views of (B, S, H, hd)
+    tensors, as ``models/attention.py::gqa_forward`` hands them over,
+    equals it on contiguous copies. Here that is the entry point's
+    contract through its CPU route (the plain version); the "tc" kernel's
+    reading of such views is held against the plain version on the card
+    (``chip_smoke.py``)."""
+    b, s, hq, hkv, hd = 2, 70, 8, 2, 64
+    rng = np.random.default_rng(11)
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, hd))
+                                .astype(np.float32)).to(tdt)
+               for h in (hq, hkv, hkv))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    assert not views[0].is_contiguous()
+    got = ops.flash_attention(*views, causal=causal)
+    want = ops.flash_attention(*(t.contiguous() for t in views),
+                               causal=causal)
+    assert got.shape == (b, hq, s, hd)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """Round float32 to bf16 (nearest even), back in float32."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def _tc_emulation(q, k, v, causal: bool,
+                  tile: int = kfa.TC_BN) -> np.ndarray:
+    """K7 tc's order of arithmetic in plain numpy (float32 arrays holding
+    bf16 values, (B, Hq, S, hd) and (B, Hkv, S, hd)): per tile of keys the
+    float32 scores s = q k^T, masked keys -inf; with c = scale * log2(e)
+    (float32), the running max m = max(m_old, max(s) * c), corr =
+    exp2(m_old - m), p = exp2(fma(s, c, -m)) (the fma in float64, rounded
+    once to float32), l = l corr + sum(p) over the float32 p, acc = acc
+    corr + bf16(p) v; out = bf16(acc / max(l, 1e-30))."""
+    b, hq, s, hd = q.shape
+    group = hq // k.shape[1]
+    scale = np.float32(np.float64(np.float32(hd ** -0.5)) * np.log2(np.e))
+    rows = np.arange(s)[:, None]
+    out = np.empty_like(q)
+    for bi in range(b):
+        for h in range(hq):
+            qh, kh, vh = q[bi, h], k[bi, h // group], v[bi, h // group]
+            m = np.full((s,), -np.inf, np.float32)
+            l = np.zeros((s,), np.float32)
+            acc = np.zeros((s, hd), np.float32)
+            for k0 in range(0, s, tile):
+                cols = np.arange(k0, min(k0 + tile, s))[None, :]
+                sc = qh @ kh[k0:k0 + tile].T
+                if causal:
+                    sc = np.where(cols <= rows, sc, -np.inf)
+                mn = np.maximum(m, sc.max(axis=1) * scale)
+                corr = np.exp2(m - mn)
+                p = np.exp2((sc.astype(np.float64) * np.float64(scale)
+                             - mn[:, None]).astype(np.float32))
+                l = l * corr + p.sum(axis=1, dtype=np.float32)
+                acc = acc * corr[:, None] + _bf16(p) @ vh[k0:k0 + tile]
+                m = mn
+            out[bi, h] = _bf16(acc / np.maximum(l, np.float32(1e-30))[:, None])
+    return out
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,hd", SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_tc_order_of_arithmetic_matches_reference_kernel(b, hq, hkv, s, hd,
+                                                          causal):
+    """(d): the tensor-core variant's reordering (scale after the product,
+    exp2 with log2 e folded in, p rounded to bf16, l from the float32 p)
+    agrees with the Pallas kernel in interpret mode at BF16_TOL with at
+    most 0.5 % of the elements beyond one bf16 ulp, and with the port's
+    plain version at the same bound."""
+    assert kfa.pick_variant(torch.bfloat16, hd) == "tc"
+    arrs = _inputs(b, hq, hkv, s, hd, seed=7 * s + hd + causal,
+                   dtype="bfloat16")
+    (jq, jk, jv), (q, k, v) = _both(arrs, "bfloat16")
+    got = torch.from_numpy(_tc_emulation(*arrs, causal=causal))
+    want = jops.flash_attention(jq, jk, jv, causal=causal, q_block=128,
+                                kv_block=128)
+    _check(got, want, "bfloat16")
+    _check(got, ops.flash_attention(q, k, v, causal=causal).float().numpy(),
+           "bfloat16")
 
 
 def test_cpu_tensors_never_launch_k7():

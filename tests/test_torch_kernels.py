@@ -141,7 +141,9 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
                                       "xnor_conv2d_pair_vpu",
                                       "xnor_conv2d_pair_mxu",
                                       "binary_weight_matmul",
-                                      "flash_attention"}
+                                      "flash_attention",
+                                      "flash_attention_tc"}
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "xnor_matmul.cu", "xnor_conv.cu", "xnor_conv_fused.cu",
-        "binary_weight_matmul.cu", "flash_attention.cu"}
+        "binary_weight_matmul.cu", "flash_attention.cu",
+        "flash_attention_tc.cu"}
