@@ -13,7 +13,10 @@ Phases, each fatal on failure (nothing is caught):
    ``xnor_conv2d_pair_vpu`` / ``_mxu``) against its plain PyTorch version
    (``kernels/ref.py``) on the card at the Table 2 path's shapes (K5 at
    every legal tile), with and without thresholds, plus ragged, strided,
-   unpooled and 5×5 extras; require bit-exact results. Time the kernel,
+   unpooled and 5×5 extras (K5: also mxu clusters of fewer than 8 blocks
+   and uneven OB shares, ``PAIR_EXTRAS``; each case prints its cluster
+   size); require bit-exact results. K5 mxu is also timed at every legal
+   tile of the path pairs. Time the kernel,
    the plain version and one PyTorch library call on the unpacked ±1
    operands (a yardstick only; the port never calls it; for K5 two cuDNN
    convs and a max-pool) by their device time per call (``device_ms``:
@@ -47,7 +50,9 @@ Phases, each fatal on failure (nothing is caught):
    token-by-token ``decode_step`` on the card; a two-layer bf16 cut's
    ``prefill`` at (1, 4096), every K7 call ("tc", on the views
    ``gqa_forward`` hands over) held against the plain version on the same
-   views, and its logits against the same cut with plain attention; the
+   views, and its logits against the same cut with plain attention, and
+   with a plain attention that rounds in K7 tc's order (both relative L2
+   gaps printed); the
    full 36-layer bf16
    model's ``prefill`` at (1, 4096) (36 K7 launches, all of them the
    tensor-core variant "tc"), profiled; the same model served through ``ServingEngine``'s default
@@ -138,6 +143,17 @@ CONV_SHAPES = [(32, 128, 128), (16, 128, 256), (16, 256, 256),
 FC_SHAPES = [(1024, 8192, True), (1024, 1024, True), (10, 1024, False)]
 # Table 2 fused pairs CONV-3/4 and CONV-5/6: (H=W, C, OA, OB), 3x3, pooled
 PAIR_SHAPES = [(16, 128, 256, 256), (8, 256, 512, 512)]
+# K5 extras (n, h, w, c, oa, ob, fa, fb, pool): ragged tile grids, 5x5
+# filters, ragged OB; and mxu clusters of C < 8 (OA = 96: C = 3; OA = 64:
+# C = 2) with uneven or ragged OB shares (40 over 3: 14/13/13; over 2:
+# 20/20), or C = 8 with OB = 200 (25 each), pooled and not, N = 1 and 4
+PAIR_EXTRAS = [(2, 10, 6, 32, 32, 32, 3, 3, False),
+               (2, 10, 6, 32, 32, 40, 5, 3, True),
+               (3, 9, 7, 64, 64, 32, 5, 5, False),
+               (2, 8, 8, 32, 32, 32, 5, 5, True)]
+PAIR_EXTRAS += [(n, 8, 8, 64, oa, 40, 3, 3, pool) for n in (1, N_SLOTS)
+                for oa in (96, 64) for pool in (True, False)]
+PAIR_EXTRAS += [(1, 8, 8, 128, 256, 200, 3, 3, True)]
 # XNOR LM (configs/xnor_lm_tiny.py::CONFIG, d 128, d_ff 256, 4 layers):
 # K6 calls per decode step by (K, N) — q/k/v/o, up, down in every layer
 BW_CALLS = {(128, 128): 16, (128, 256): 4, (256, 128): 4}
@@ -304,15 +320,24 @@ def rand_thr(g, n, k, device):
     return c.to(device), flip.to(device)
 
 
+def record(stats, name, got, want, what):
+    """Hold an integer kernel output bit-exact against its plain version;
+    keep the largest error in ``stats[name]``."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{name} {what}: {got.dtype}{tuple(got.shape)} vs plain "
+          f"{want.dtype}{tuple(want.shape)}")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+    check(err == 0, f"{name} {what}: max |kernel - plain| = {err}")
+
+
 def kernel_phase(bound: Bound) -> dict:
     """Phase 2: bit-exact checks and timings of K1-K6 at the path shapes.
     Returns per-kernel sums over one BCNN forward's launches at batch
     N_SLOTS (K6: over one LM decode step)."""
     from repro_torch.core import bitpack
     from repro_torch.kernels import ref
-    from repro_torch.kernels import autotune
     from repro_torch.kernels import xnor_conv as kconv
-    from repro_torch.kernels import xnor_conv_fused as kfused
     from repro_torch.kernels import xnor_matmul as kmm
 
     dev = torch.device("cuda")
@@ -320,14 +345,6 @@ def kernel_phase(bound: Bound) -> dict:
     stats = {name: dict(max_abs_err=0, ms=0.0, call_ms=0.0, plain_ms=0.0,
                         t_bytes=0.0, t_ops=0.0, library_ms=0.0)
              for name in SOURCES}
-
-    def record(name, got, want, what):
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
-        check(got.dtype == want.dtype and got.shape == want.shape,
-              f"{name} {what}: {got.dtype}{tuple(got.shape)} vs plain "
-              f"{want.dtype}{tuple(want.shape)}")
-        check(err == 0, f"{name} {what}: max |kernel - plain| = {err}")
 
     # --- K1 / K2: FC shapes of the BCNN path, ragged extras, im2col
     # shapes, and the XNOR LM's projections in mode "xnor" (no thresholds;
@@ -361,7 +378,7 @@ def kernel_phase(bound: Bound) -> dict:
                          ("xnor_matmul_mxu", kmm.xnor_matmul_mxu)):
             def run(fn=fn):
                 return fn(a, w, k=k, thr_c=c, thr_flip=f)
-            record(name, run(), want, f"M={m} N={n} k={k} thr={thr}")
+            record(stats, name, run(), want, f"M={m} N={n} k={k} thr={thr}")
             if site == "lm":
                 d = device_ms(run)
                 lm_step_ms[name] += BW_CALLS[(k, n)] * d
@@ -423,7 +440,7 @@ def kernel_phase(bound: Bound) -> dict:
             def run(fn=fn):
                 return fn(aw, ww, k=k, fh=f, fw=f, stride=s_, pad=(p, p),
                           thr_c=th, thr_flip=fl)
-            record(name, run(), want, f"N={n} {h}x{wd} C={c} O={o} "
+            record(stats, name, run(), want, f"N={n} {h}x{wd} C={c} O={o} "
                    f"{f}x{f}/s{s_} thr={thr}")
             if not on_path:
                 continue
@@ -444,85 +461,7 @@ def kernel_phase(bound: Bound) -> dict:
               f"{f}x{f} stride {s_} thresholds={thr}"
               f"{' (path shape)' if on_path else ''}")
 
-    # --- K5: both Table 2 pairs at every legal tile, plus extras
-    # (n, h, w, c, oa, ob, fa, fb, pool, on_path)
-    pr_cases = [(N_SLOTS, h, h, c, oa, ob, 3, 3, True, True)
-                for h, c, oa, ob in PAIR_SHAPES]
-    pr_cases += [(2, 10, 6, 32, 32, 32, 3, 3, False, False),
-                 (2, 10, 6, 32, 32, 40, 5, 3, True, False),
-                 (3, 9, 7, 64, 64, 32, 5, 5, False, False),
-                 (2, 8, 8, 32, 32, 32, 5, 5, True, False)]
-    for n, h, wd, c, oa, ob, fa, fb, pool, on_path in pr_cases:
-        a_bits = rand_bits(g, (n, h, wd, c), dev)
-        wa_bits = rand_bits(g, (oa, fa, fa, c), dev)
-        wb_bits = rand_bits(g, (ob, fb, fb, oa), dev)
-        ka, kb = fa * fa * c, fb * fb * oa
-        ca, fla = rand_thr(g, oa, ka, dev)
-        cb, flb = rand_thr(g, ob, kb, dev)
-        thr = dict(thr_a_c=ca, thr_a_flip=fla, thr_b_c=cb, thr_b_flip=flb)
-
-        def plain():
-            return ref.xnor_conv2d_pair_ref(a_bits, wa_bits, wb_bits,
-                                            pool_b=pool, **thr)
-
-        want = plain()
-        aw = bitpack.pack_bits(a_bits)
-        waw = kconv.pack_conv_weights(bitpack.decode_pm1(wa_bits))
-        wbw = kconv.pack_conv_weights(bitpack.decode_pm1(wb_bits))
-        pf = 2 if pool else 1
-        geom = dict(pf=pf, fha=fa, fwa=fa, cwa=c // 32, fhb=fb, fwb=fb, oa=oa)
-        tiles = autotune.tile_candidates(h // pf, wd // pf, **geom)
-        if not on_path:
-            tiles = tuple(t for t in ((4, 4), (1, 2), (2, 2)) if t in tiles)
-        path_tile = kfused.pick_tiles(h // pf, wd // pf, **geom)
-        for name, fn in (("xnor_conv2d_pair_vpu", kfused.xnor_conv2d_pair_vpu),
-                         ("xnor_conv2d_pair_mxu", kfused.xnor_conv2d_pair_mxu)):
-            def run(fn=fn, tile=path_tile):
-                return fn(aw, waw, wbw, ka=ka, kb=kb, fha=fa, fwa=fa, fhb=fb,
-                          fwb=fb, pool=pool, th=tile[0], tw=tile[1], **thr)
-            for tile in tiles:
-                record(name, run(tile=tile), want,
-                       f"N={n} {h}x{wd} C={c} OA={oa} OB={ob} {fa}x{fa}/"
-                       f"{fb}x{fb} pool={pool} tile={tile}")
-            if not on_path:
-                continue
-            st = stats[name]
-            variant = name.rsplit("_", 1)[1]
-            nbytes = (aw.numel() + waw.numel() + wbw.numel()) * 4
-            nbytes += want.numel() + (oa + ob) * 5
-            # bit-MACs of conv A over the real map and of conv B, each
-            # counted once (the kernel's halo recompute is not work the
-            # function needs)
-            t_b, t_o = bound(variant, nbytes,
-                             n * h * wd * (oa * ka + ob * kb))
-            st["t_bytes"] += t_b
-            st["t_ops"] += t_o
-            d = device_ms(run)
-            st["ms"] += d
-            st["call_ms"] += time_ms(run)
-            print(f"  {name} at the path tile {path_tile}: {d:.4g} ms on "
-                  f"the device, bound {max(t_b, t_o):.4g} ms")
-            st["plain_ms"] += device_ms(plain)
-            a16 = bitpack.decode_pm1(a_bits, torch.float16).permute(
-                0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-            mid16 = bitpack.decode_pm1(
-                ref.norm_binarize_ref(ref.xnor_conv2d_ref(a_bits, wa_bits),
-                                      ca, fla), torch.float16).permute(
-                0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-            wa16, wb16 = (bitpack.decode_pm1(t, torch.float16).permute(
-                0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-                for t in (wa_bits, wb_bits))
-
-            def library():      # yardstick: two cuDNN convs + a max-pool
-                torch.nn.functional.conv2d(a16, wa16, padding=fa // 2)
-                return torch.nn.functional.max_pool2d(
-                    torch.nn.functional.conv2d(mid16, wb16,
-                                               padding=fb // 2), 2)
-            st["library_ms"] += device_ms(library)
-        print(f"K5 bit-exact vs plain at N={n} {h}x{wd} C={c} OA={oa} "
-              f"OB={ob} {fa}x{fa}/{fb}x{fb} pool={pool}, tiles {list(tiles)}"
-              f"{' (path shape)' if on_path else ''}")
-
+    pair_phase(g, dev, bound, stats)
     bw_phase(g, dev, bound, stats["binary_weight_matmul"])
     flash_phase(g, dev, stats)
 
@@ -546,6 +485,102 @@ def kernel_phase(bound: Bound) -> dict:
               f"({s['bound_by']}), plain {s['plain_ms']:.4f} ms, {lib} "
               f"{s['library_ms']:.4f} ms")
     return stats
+
+
+def pair_phase(g, dev, bound: Bound, stats: dict) -> None:
+    """K5 (``xnor_conv2d_pair_vpu`` / ``_mxu``) against its plain version,
+    bit-exact: both Table 2 pairs at every legal tile, then ``PAIR_EXTRAS``
+    (ragged tile grids, 5×5 filters, ragged OB, and clusters of C < 8 or
+    uneven OB shares for mxu). Prints the mxu cluster split of every case.
+    At the path pairs, sums each variant's device time at the default
+    tile into ``stats`` and times mxu at every legal tile."""
+    from repro_torch.core import bitpack
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import xnor_conv as kconv
+    from repro_torch.kernels import xnor_conv_fused as kfused
+
+    pr_cases = [(N_SLOTS, h, h, c, oa, ob, 3, 3, True, True)
+                for h, c, oa, ob in PAIR_SHAPES]
+    pr_cases += [(*x, False) for x in PAIR_EXTRAS]
+    for n, h, wd, c, oa, ob, fa, fb, pool, on_path in pr_cases:
+        a_bits = rand_bits(g, (n, h, wd, c), dev)
+        wa_bits = rand_bits(g, (oa, fa, fa, c), dev)
+        wb_bits = rand_bits(g, (ob, fb, fb, oa), dev)
+        ka, kb = fa * fa * c, fb * fb * oa
+        ca, fla = rand_thr(g, oa, ka, dev)
+        cb, flb = rand_thr(g, ob, kb, dev)
+        thr = dict(thr_a_c=ca, thr_a_flip=fla, thr_b_c=cb, thr_b_flip=flb)
+
+        def plain():
+            return ref.xnor_conv2d_pair_ref(a_bits, wa_bits, wb_bits,
+                                            pool_b=pool, **thr)
+
+        want = plain()
+        aw = bitpack.pack_bits(a_bits)
+        waw = kconv.pack_conv_weights(bitpack.decode_pm1(wa_bits))
+        wbw = kconv.pack_conv_weights(bitpack.decode_pm1(wb_bits))
+        pf = 2 if pool else 1
+        geom = dict(pf=pf, fha=fa, fwa=fa, cwa=c // 32, fhb=fb, fwb=fb, oa=oa)
+        tiles = autotune.tile_candidates(h // pf, wd // pf, **geom)
+        if not on_path:
+            tiles = tuple(t for t in ((4, 4), (1, 2), (2, 2)) if t in tiles)
+        path_tile = kfused.pick_tiles(h // pf, wd // pf, **geom)
+        case = (f"N={n} {h}x{wd} C={c} OA={oa} OB={ob} {fa}x{fa}/{fb}x{fb} "
+                f"pool={pool}")
+        csize, _, ob_split = kfused.mxu_split(oa, ob)
+        for name, fn in (("xnor_conv2d_pair_vpu", kfused.xnor_conv2d_pair_vpu),
+                         ("xnor_conv2d_pair_mxu", kfused.xnor_conv2d_pair_mxu)):
+            def run(fn=fn, tile=path_tile):
+                return fn(aw, waw, wbw, ka=ka, kb=kb, fha=fa, fwa=fa, fhb=fb,
+                          fwb=fb, pool=pool, th=tile[0], tw=tile[1], **thr)
+            for tile in tiles:
+                record(stats, name, run(tile=tile), want,
+                       f"{case} tile={tile}")
+            if not on_path:
+                continue
+            st = stats[name]
+            variant = name.rsplit("_", 1)[1]
+            nbytes = (aw.numel() + waw.numel() + wbw.numel()) * 4
+            nbytes += want.numel() + (oa + ob) * 5
+            # bit-MACs of conv A over the real map and of conv B, each
+            # counted once (the kernel's halo recompute is not work the
+            # function needs)
+            t_b, t_o = bound(variant, nbytes,
+                             n * h * wd * (oa * ka + ob * kb))
+            st["t_bytes"] += t_b
+            st["t_ops"] += t_o
+            d = device_ms(run)
+            st["ms"] += d
+            st["call_ms"] += time_ms(run)
+            print(f"  {name} at the path tile {path_tile}: {d:.4g} ms on "
+                  f"the device, bound {max(t_b, t_o):.4g} ms")
+            if variant == "mxu":
+                print(f"  {name} {case}, device ms per tile "
+                      f"(cluster of {csize}): " + ", ".join(
+                          f"{t} {device_ms(lambda t=t: run(tile=t)):.4g}"
+                          for t in tiles))
+            st["plain_ms"] += device_ms(plain)
+            a16 = bitpack.decode_pm1(a_bits, torch.float16).permute(
+                0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            mid16 = bitpack.decode_pm1(
+                ref.norm_binarize_ref(ref.xnor_conv2d_ref(a_bits, wa_bits),
+                                      ca, fla), torch.float16).permute(
+                0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            wa16, wb16 = (bitpack.decode_pm1(t, torch.float16).permute(
+                0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+                for t in (wa_bits, wb_bits))
+
+            def library():      # yardstick: two cuDNN convs + a max-pool
+                torch.nn.functional.conv2d(a16, wa16, padding=fa // 2)
+                return torch.nn.functional.max_pool2d(
+                    torch.nn.functional.conv2d(mid16, wb16,
+                                               padding=fb // 2), 2)
+            st["library_ms"] += device_ms(library)
+        print(f"K5 bit-exact vs plain at {case}, tiles {list(tiles)}; mxu "
+              f"cluster of {csize}, OB shares "
+              f"{sorted({hi - lo for lo, hi in ob_split})}"
+              f"{' (path shape)' if on_path else ''}")
 
 
 def bw_phase(g, dev, bound: Bound, st: dict) -> None:
@@ -1195,12 +1230,36 @@ def zero_k7() -> None:
     kfa.flash_attention.launches_simt = 0
 
 
+def plain_attention_k7_order(q, k, v, *, causal=True):
+    """``ref.flash_attention_ref`` with K7 tc's order of rounding: the
+    unnormalised p (float32) is rounded to v's dtype, multiplied by V with
+    float32 sums, and only then divided by l, in float32, before the cast
+    to q's dtype (the plain version rounds p / l)."""
+    s, hd = q.shape[2], q.shape[3]
+    g = q.shape[1] // k.shape[1]
+    kr = torch.repeat_interleave(k, g, dim=1)
+    vr = torch.repeat_interleave(v, g, dim=1)
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) * hd ** -0.5
+    if causal:
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                     device=q.device))
+        sc = torch.where(mask[None, None], sc, -1e30)
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vr.float())
+    return (pv / l).to(q.dtype)
+
+
 def bf16_cut(full, rng, dev) -> None:
     """Two layers of ``full`` at full width, bf16, ``prefill`` at
     ``DENSE_PREFILL``: every K7 call on the views ``gqa_forward`` hands
     over ("tc") is held against the plain version on the same views, and
     the logits against the same cut with plain attention (relative L2 at
-    most the bf16 ``FLASH_TOL`` rtol)."""
+    most the bf16 ``FLASH_TOL`` rtol). The cut also runs with the plain
+    attention in K7's order of rounding (``plain_attention_k7_order``):
+    both relative L2 gaps are printed, to tell the model's sensitivity to
+    where p is rounded (the second gap closes) from a fault of K7 (it
+    does not)."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops, ref
     from repro_torch.models import transformer as tf
@@ -1231,7 +1290,8 @@ def bf16_cut(full, rng, dev) -> None:
         return ref.flash_attention_ref(q, k, v, causal=causal)
 
     cut_logits = {}
-    for attn, fn in (("K7 tc", held), ("plain", plain)):
+    for attn, fn in (("K7 tc", held), ("plain", plain),
+                     ("plain, K7 order", plain_attention_k7_order)):
         ops.flash_attention = fn
         try:
             cut_logits[attn] = tf.prefill(cut, params, toks).float()
@@ -1239,6 +1299,9 @@ def bf16_cut(full, rng, dev) -> None:
             ops.flash_attention = k7
     got, want = cut_logits["K7 tc"], cut_logits["plain"]
     rel = float((got - want).norm() / want.norm())
+    k7_order = cut_logits["plain, K7 order"]
+    rel_order = float((got - k7_order).norm() / k7_order.norm())
+    rel_plains = float((k7_order - want).norm() / want.norm())
     check(len(held_calls) == cut.n_layers, f"[dense bf16 cut] "
           f"{len(held_calls)} K7 calls, expected {cut.n_layers}")
     check(bool(got.isfinite().all())
@@ -1253,6 +1316,12 @@ def bf16_cut(full, rng, dev) -> None:
           f"{FLASH_TOL[torch.bfloat16]['rtol']}), max |diff| "
           f"{float((got - want).abs().max()):.3g}, argmax "
           f"{'equal' if int(got.argmax()) == int(want.argmax()) else 'differs'}")
+    print(f"[dense bf16 cut] logits relative L2: K7 tc vs plain {rel:.4g}; "
+          f"K7 tc vs plain in K7's rounding order {rel_order:.4g}; the two "
+          f"plains apart {rel_plains:.4g}; argmax vs the K7-order plain "
+          f"{'equal' if int(got.argmax()) == int(k7_order.argmax()) else 'differs'}")
+    check(bool(k7_order.isfinite().all()), "[dense bf16 cut] the K7-order "
+          "plain logits are not finite")
 
 
 def dense_phase() -> tuple[int, int]:

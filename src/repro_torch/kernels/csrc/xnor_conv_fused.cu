@@ -28,38 +28,54 @@
 //   small. What the fusion saves is the A-output bit map's round trip
 //   through device memory, its pack_bits pass and one launch.
 //
-// Design: one block per (image, th x tw tile of the pair's output). The
-//   block stages the input words of its halo, (pf*th+fhb+fha-2) x
+// Design, both variants: a block computes one th x tw tile of the pair's
+//   output. It stages the input words of its halo, (pf*th+fhb+fha-2) x
 //   (pf*tw+fwb+fwa-2) x CwA, in shared memory, with zero words outside the
-//   image (no padded copy in device memory). It computes conv A over the
-//   A-output halo (pf*th+fhb-1) x (pf*tw+fwb-1), the positions conv B's tile
-//   reads, applies eq. 8 and the halo mask, and re-packs the bits into
-//   words in shared memory: lane = channel, so one __ballot_sync builds a
-//   channel word. Conv B then reads that bit map from shared memory, and
-//   its epilogue thresholds and pools in registers. Halo positions are
-//   recomputed by neighbouring blocks (recompute-at-consumer), never
-//   stored. The filters of CONV-5/6 (147 KB for A, 295 KB for B) do not fit
-//   in one block's 227 KB, so they stream through in output-channel chunks:
-//   vpu stages 128 filter rows at a time in shared memory at an odd word
-//   stride (conflict-free reads, lane = row); mxu reads 32 rows x 4 words
-//   per k-step from global memory (L2) and unpacks them, as K4 does.
-//   vpu: each thread keeps PB agree-counts in registers per filter word.
-//   mxu: 64 patch rows (gathered from shared memory) x 32 channels per
-//   chunk, +1/-1 int8 in 16-element k-slabs, 8 warps of nvcuda::wmma
-//   16x16x16 int8 MMAs with int32 accumulators (exact at any k).
-//   The grid has only N x tiles blocks (4-256 at batch 4 on the Table 2
-//   pairs, by tile); a thread-block-cluster design that splits OA/OB across
-//   blocks and shares the A bit map through distributed shared memory is
-//   the next step (ROADMAP, K5 perf item).
+//   image (no padded copy in device memory), computes conv A over the
+//   A-output halo (pf*th+fhb-1) x (pf*tw+fwb-1), the positions conv B's
+//   tile reads, applies eq. 8 and the halo mask, and re-packs the bits
+//   into channel words of a bit map in shared memory. Conv B reads that
+//   map, and its epilogue thresholds and pools in registers. Halo
+//   positions are recomputed by neighbouring tiles, never stored.
+// vpu: one block per (image, tile). Filter rows stream through shared
+//   memory 128 at a time at an odd word stride (conflict-free reads, lane =
+//   row); each thread keeps PBA / PBB agree-counts in registers per filter
+//   word; one __ballot_sync builds a channel word of the map.
+// mxu: a thread-block cluster of C blocks per (image, tile), C the largest
+//   divisor of OA/32 that is at most 8 (portable; 8 at both Table 2 pairs,
+//   so 8x the blocks of one per tile). Rank r computes conv A for OA/C
+//   channels over the whole A halo into its own words of the bit map;
+//   after a cluster barrier it copies the peers' words from their shared
+//   memory (DSMEM), so conv A is never recomputed across the cluster, and
+//   computes conv B for its ceil-split share of OB (ragged shares masked).
+//   A second, split cluster barrier keeps every map alive until the last
+//   peer has read it. Both products run as mma.sync m16n8k32 s8 with
+//   filter rows on M and positions on N (conv B's 4 positions at CONV-5/6
+//   fill half an n8 tile, not 4 of 64 rows), int32 accumulators (exact at
+//   any k). The rank's filter rows, up to MR = 64 per pass (32 or 16 where
+//   64 do not fit the block; larger shares stream through in further
+//   passes), arrive by one TMA bulk copy per conv counted on an mbarrier
+//   (4-byte cp.async where rows are not whole 16-byte units): conv A's at
+//   block start, conv B's once conv A's has landed, so it loads while conv
+//   A runs (18 + 36 KB at CONV-5/6). A lane unpacks the bits it needs of
+//   each packed filter and patch word straight into its +-1 int8 fragments
+//   (a shift, an AND and a multiply-add per register): one word is one k32
+//   step, with no unpack pass through shared memory and no barrier per
+//   step. A warp computes one m16 tile against two n8 tiles where a pass
+//   has more than one, sharing the filter fragments; with fewer tiles than
+//   warps, K is split across warps and the partial sums meet by
+//   shared-memory atomics. What holds it is the integer work of the
+//   unpack (the MMAs are a small share) and, per block, the latency of
+//   staging and of the two cluster barriers. halo_scratch in
+//   kernels/xnor_conv_fused.py mirrors the shared memory and mxu_split the
+//   cluster and channel split.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <mma.h>
-
-#include "bits.cuh"
 
 namespace {
 
-using namespace nvcuda;
+namespace cg = cooperative_groups;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -71,10 +87,17 @@ constexpr int PBA = 8;      // conv A positions per thread per pass
 constexpr int PBB = 4;      // conv B positions per thread per pass
 
 // mxu
-constexpr int KC = 4;         // patch words per k-step (128 k)
-constexpr int SLABS = 2 * KC; // 16-element k-slabs per step
-constexpr int MROWS = 64;     // patch rows per chunk (4 warps x 16)
-constexpr int NCOLS = 32;     // channels per chunk (2 warps x 16)
+constexpr int MR = 64;          // most filter rows staged per pass
+constexpr int MAX_CLUSTER = 8;  // portable cluster size
+constexpr size_t SMEM_LIMIT = 232448;  // H100 opt-in shared memory / block
+// The mxu kernel's static shared memory: split-K partial sums (one m16n8
+// int32 tile per warp: K is split only when a pass has at most WARPS / 2
+// units of at most 2 tiles) and the mbarriers of the two filter slices.
+struct MxuStatic {
+  int red[WARPS * 128];
+  uint64_t bar[2];
+};
+constexpr size_t MXU_STATIC = sizeof(MxuStatic);
 
 struct Geom {
   int H, W, CwA, OA, OB;
@@ -85,7 +108,7 @@ struct Geom {
   int npad_a, npad_b;
 };
 
-// Per-block tile geometry derived from Geom and blockIdx.
+// Per-block tile geometry derived from Geom and the block's tile index.
 struct Tile {
   int ha, wa;    // A-output halo extent (positions conv B reads)
   int rx, cx;    // input halo extent (positions conv A reads)
@@ -95,14 +118,14 @@ struct Tile {
 };
 
 template <int PF>
-__device__ __forceinline__ Tile make_tile(const Geom& g) {
+__device__ __forceinline__ Tile make_tile(const Geom& g, int tile) {
   Tile t;
   t.ha = PF * g.th + g.fhb - 1;
   t.wa = PF * g.tw + g.fwb - 1;
   t.rx = t.ha + g.fha - 1;
   t.cx = t.wa + g.fwa - 1;
-  t.oy0 = (blockIdx.x / g.tiles_w) * g.th;
-  t.ox0 = (blockIdx.x % g.tiles_w) * g.tw;
+  t.oy0 = (tile / g.tiles_w) * g.th;
+  t.ox0 = (tile % g.tiles_w) * g.tw;
   t.ay0 = t.oy0 * PF - g.fhb / 2;
   t.ax0 = t.ox0 * PF - g.fwb / 2;
   t.OAw = g.OA / 32;
@@ -159,7 +182,7 @@ pair_vpu_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ wa,
                 const uint8_t* __restrict__ fb, int8_t* __restrict__ out,
                 Geom g) {
   extern __shared__ uint32_t smem[];
-  const Tile t = make_tile<PF>(g);
+  const Tile t = make_tile<PF>(g, blockIdx.x);
   const int n = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   uint32_t* x_s = smem;                              // [rx][cx][CwA]
@@ -274,148 +297,433 @@ pair_vpu_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ wa,
 
 // ---------------------------------------------------------------- mxu ----
 
-struct __align__(128) MmaSmem {
-  int8_t a[SLABS][MROWS][16];
-  int8_t w[SLABS][NCOLS][16];
-  int32_t c[WARPS][16][16];
-};
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-// One (MROWS patch rows) x (NCOLS filter rows o0..) chunk of a conv as an
-// implicit +-1 int8 matrix product, left in sm.c[warp] (16 x 16 int32 dot
-// products per warp: rows 16 * (warp / 2), channels 16 * (warp % 2)).
-// Thread tid gathers patch row tid / KC, whose reception field starts at
-// word `base` of `src` (a [..][src_w][Cw] word map in shared memory), or
-// -1 for a masked row; a masked row and words past L unpack to 0 and add
-// nothing to the dot.
-__device__ __forceinline__ void mma_chunk(const uint32_t* src, int base,
-                                          int src_w, int Cw, int fw,
-                                          const int32_t* __restrict__ w,
-                                          int O, int o0, int L, MmaSmem& sm) {
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int p = tid / KC, kk = tid % KC;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
-  wmma::fill_fragment(acc, 0);
-  for (int l0 = 0; l0 < L; l0 += KC) {
-    {
-      const int l = l0 + kk;
-      const bool valid = l < L && base >= 0;
-      uint32_t v = 0u;
-      if (valid) {
-        const int cw = l % Cw, dx = (l / Cw) % fw, dy = l / (Cw * fw);
-        v = src[base + (dy * src_w + dx) * Cw + cw];
-      }
-      repro::unpack_pm1_16(v, valid, &sm.a[2 * kk][p][0]);
-      repro::unpack_pm1_16(v >> 16, valid, &sm.a[2 * kk + 1][p][0]);
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The split cluster barrier: arrive once this block is done reading its
+// peers' shared memory, wait before it exits, so no block's bit map goes
+// away while a peer still reads it.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               "fence.mbarrier_init.release.cluster;\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait until the phase of parity `parity` of bar has completed; trap after
+// 60 s (a copy that never lands), which leaves the CUDA context unusable.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (t0 == 0) {
+      t0 = now;
+    } else if (now - t0 > 60000000000ull) {
+      __trap();
     }
-    if (tid < NCOLS * KC) {
-      const int r = tid / KC, k2 = tid % KC, l = l0 + k2;
-      const bool valid = l < L && o0 + r < O;
-      const uint32_t v = valid
-          ? static_cast<uint32_t>(w[static_cast<size_t>(o0 + r) * L + l])
-          : 0u;
-      repro::unpack_pm1_16(v, valid, &sm.w[2 * k2][r][0]);
-      repro::unpack_pm1_16(v >> 16, valid, &sm.w[2 * k2 + 1][r][0]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int s = 0; s < SLABS; ++s) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, &sm.a[s][wm * 16][0], 16);
-      wmma::load_matrix_sync(fb, &sm.w[s][wn * 16][0], 16);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    __syncthreads();
   }
-  wmma::store_matrix_sync(&sm.c[warp][0][0], acc, 16, wmma::mem_row_major);
-  __syncthreads();
 }
 
-// Dot product of chunk row r with chunk channel cc, from sm.c.
-__device__ __forceinline__ int chunk_dot(const MmaSmem& sm, int r, int cc) {
-  return sm.c[(r / 16) * 2 + cc / 16][r % 16][cc % 16];
+// `bytes` (a multiple of 16) from global to shared memory by the TMA unit,
+// counted on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes),
+                  "r"(smem_u32(bar))
+               : "memory");
 }
 
+// Bits 0, 8, 16 and 24 of x as four int8 +1 / -1 (bit 1 = +1) in bytes
+// 0..3: one AND and one multiply-add, -(254 m) - 1 = ~(m * 0xFE).
+__device__ __forceinline__ uint32_t pm1_bytes(uint32_t x) {
+  return (x & 0x01010101u) * 0xFFFFFF02u + 0xFFFFFFFFu;
+}
+
+// D = A B + D, m16n8k32, int8 operands, int32 accumulators. Fragments
+// (lane = 4 g + t): a[0] row g, a[1] row g + 8, k 4t..4t+3; a[2], a[3] the
+// same rows at k 16+4t..; b0 k 4t.., b1 k 16+4t.., column g; acc[0..1] row
+// g, columns 2t and 2t + 1; acc[2..3] row g + 8.
+__device__ __forceinline__ void mma_s8(int (&acc)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Bytes that stage_rows(.., rows, bulk, bar, ..) will count on bar: thread
+// 0 announces them before a block barrier that precedes the copies.
+__device__ __forceinline__ void expect_rows(bool bulk, uint64_t* bar,
+                                            int rows, int L) {
+  if (bulk && threadIdx.x == 0) mbar_expect_tx(bar, rows * L * 4);
+}
+
+// Start staging filter rows r0 .. r0+rows-1 of w (O x L words, contiguous)
+// into w_s, as they lie. bulk (L % 4 == 0, w 16-byte aligned): thread 0
+// issues one TMA bulk copy, counted on bar (expect_rows announced the
+// bytes), and the caller waits on bar; else every thread issues 4-byte
+// cp.async and commits one group, and the caller waits for that group.
+// Rows up to the next multiple of 16 are zeroed by plain stores (a ragged
+// m16 tile reads them; its results are dropped).
+__device__ __forceinline__ void stage_rows(const int32_t* __restrict__ w,
+                                           int L, int r0, int rows, bool bulk,
+                                           uint64_t* bar, uint32_t* w_s) {
+  const int32_t* src = w + static_cast<size_t>(r0) * L;
+  if (bulk) {
+    if (threadIdx.x == 0 && rows > 0) bulk_copy(w_s, src, rows * L * 4, bar);
+  } else {
+    for (int i = threadIdx.x; i < rows * L; i += THREADS)
+      cp_async4(w_s + i, src + i);
+    cp_async_commit();
+  }
+  for (int i = rows * L + threadIdx.x; i < (rows + 15) / 16 * 16 * L;
+       i += THREADS)
+    w_s[i] = 0u;
+}
+
+template <int V>
+__device__ __forceinline__ void load_words(const uint32_t* p,
+                                           uint32_t (&w)[V]) {
+  if constexpr (V == 4) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
+  } else {
+    w[0] = *p;
+  }
+}
+
+// NT m16 x n8 tiles side by side over k-units u0 .. u1-1 of V words each
+// (V = 4: one 16-byte load per operand and unit): filter rows m0 .. m0+15
+// of f_s (L words each) against the patches of 8 NT positions. Lane
+// (g, t) gathers the patch of column g of n-tile j, which starts at word
+// base[j] of src (a word map with rows of src_w positions of cw_n words;
+// fw taps per filter row), and unpacks the filter and patch words straight
+// into +-1 fragments: a word is one k32 step, and lane t takes bits t + 8i
+// into k 4t + i and bits t + 4 + 8i into k 16 + 4t + i of both operands (a
+// permutation of k that leaves the dot product as it is), a shift, an AND
+// and a multiply-add per register. The filter fragments serve all NT
+// n-tiles. No shared-memory round trip, no barrier.
+template <int V, int NT>
+__device__ __forceinline__ void mma_tiles(const uint32_t* f_s, int L, int m0,
+                                          const uint32_t* src,
+                                          const int (&base)[NT], int src_w,
+                                          int cw_n, int fw, int u0, int u1,
+                                          int (&acc)[NT][4]) {
+  const int lane = threadIdx.x % 32, t = lane % 4, t4 = t + 4;
+  const uint32_t* r0 = f_s + (m0 + lane / 4) * L + u0 * V;
+  const uint32_t* r1 = r0 + 8 * L;
+  const int nu = cw_n / V;                           // units per tap
+  int cu = u0 % nu, dx = (u0 / nu) % fw;
+  int off = ((u0 / nu / fw) * src_w + dx) * cw_n + cu * V;
+  for (int u = u0; u < u1; ++u) {
+    uint32_t w0[V], w1[V], v[NT][V];
+    load_words<V>(r0, w0);
+    load_words<V>(r1, w1);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) load_words<V>(src + base[j] + off, v[j]);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const uint32_t a[4] = {pm1_bytes(w0[i] >> t), pm1_bytes(w1[i] >> t),
+                             pm1_bytes(w0[i] >> t4), pm1_bytes(w1[i] >> t4)};
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mma_s8(acc[j], a, pm1_bytes(v[j][i] >> t), pm1_bytes(v[j][i] >> t4));
+    }
+    r0 += V;
+    r1 += V;
+    off += V;
+    if (++cu == nu) {                                // next tap
+      cu = 0;
+      if (++dx == fw) {
+        dx = 0;
+        off += (src_w - fw) * cw_n;
+      }
+    }
+  }
+}
+
+// The m16 x n8 tiles (mt x nt) of one pass over the block's warps, NT
+// n-tiles per warp unit, in 16-byte k-units where cw_n and src allow it.
+// With fewer units than warps, K is split into ks slices whose partial sums
+// meet in red (shared-memory atomics). base(col) gives the patch start of
+// column col; epi(mi, nj, acc) receives each tile's whole dot products in
+// the accumulator layout of mma_s8, in all 32 lanes.
+template <int V, int NT, class Base, class Epi>
+__device__ __forceinline__ void run_tiles_v(int mt, int nt, int L,
+                                            const uint32_t* f_s,
+                                            const uint32_t* src, int src_w,
+                                            int cw_n, int fw, Base base,
+                                            Epi epi, int* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ng = (nt + NT - 1) / NT, units = mt * ng, ku = L / V;
+  const int ks = units >= WARPS ? 1 : min(WARPS / units, ku);
+  for (int w = warp; w < units * ks; w += WARPS) {
+    const int unit = w % units, s = w / units;
+    const int mi = unit % mt, n0 = NT * (unit / mt);
+    int acc[NT][4] = {};
+    int bases[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) bases[j] = base(8 * (n0 + j) + lane / 4);
+    mma_tiles<V, NT>(f_s, L, 16 * mi, src, bases, src_w, cw_n, fw,
+                     ku * s / ks, ku * (s + 1) / ks, acc);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (ks == 1) {
+        if (n0 + j < nt) epi(mi, n0 + j, acc[j]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          atomicAdd(&red[(unit * NT + j) * 128 + lane * 4 + i], acc[j][i]);
+      }
+    }
+  }
+  if (ks > 1) {
+    __syncthreads();
+    for (int tile = warp; tile < units * NT; tile += WARPS) {
+      int acc[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i] = red[tile * 128 + lane * 4 + i];
+        red[tile * 128 + lane * 4 + i] = 0;        // clean for the next pass
+      }
+      const int unit = tile / NT, nj = NT * (unit / mt) + tile % NT;
+      if (nj < nt) epi(unit % mt, nj, acc);
+    }
+  }
+}
+
+template <class Base, class Epi>
+__device__ __forceinline__ void run_tiles(int mt, int nt, int L,
+                                          const uint32_t* f_s,
+                                          const uint32_t* src, int src_w,
+                                          int cw_n, int fw, Base base, Epi epi,
+                                          int* red) {
+  const bool vec =
+      cw_n % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  if (vec && nt > 1)
+    run_tiles_v<4, 2>(mt, nt, L, f_s, src, src_w, cw_n, fw, base, epi, red);
+  else if (vec)
+    run_tiles_v<4, 1>(mt, nt, L, f_s, src, src_w, cw_n, fw, base, epi, red);
+  else
+    run_tiles_v<1, 1>(mt, nt, L, f_s, src, src_w, cw_n, fw, base, epi, red);
+}
+
+// Cluster rank r of csize blocks per (image, tile): conv A for OA channels
+// [r OA/csize, (r+1) OA/csize) over the whole A halo into its words of the
+// bit map; after a cluster barrier it copies the peers' words from their
+// shared memory (DSMEM), then conv B for OB channels [ceil(r OB/csize),
+// ceil((r+1) OB/csize)). mr: filter rows per pass; bulk: stage the filters
+// by TMA bulk copies (see stage_rows).
 template <int PF>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 4)
 pair_mxu_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ wa,
                 const float* __restrict__ ca, const uint8_t* __restrict__ fa,
                 const int32_t* __restrict__ wb, const float* __restrict__ cb,
                 const uint8_t* __restrict__ fb, int8_t* __restrict__ out,
-                Geom g) {
-  extern __shared__ uint32_t smem[];
-  __shared__ MmaSmem sm;
-  const Tile t = make_tile<PF>(g);
+                Geom g, int csize, int mr, int bulk) {
+  extern __shared__ __align__(16) uint32_t smem_mxu[];
+  __shared__ MxuStatic st;
+  int* red = st.red;
+  uint64_t* bar = st.bar;                            // filters of A, of B
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const Tile t = make_tile<PF>(g, blockIdx.x / csize);
   const int n = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  uint32_t* x_s = smem;                              // [rx][cx][CwA]
-  uint32_t* a_s = x_s + t.rx * t.cx * g.CwA;         // [ha][wa][OAw]
-  stage_input(a, g, t, n, x_s);
+  const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
+  const int oa_per = g.OA / csize, oa0 = rank * oa_per;
+  const int ob0 = (rank * g.OB + csize - 1) / csize;
+  const int ob1 = ((rank + 1) * g.OB + csize - 1) / csize;
+  const int LA = g.fha * g.fwa * g.CwA, LB = g.fhb * g.fwb * t.OAw;
+  constexpr int PP = PF * PF;
+  const int PA = t.ha * t.wa, Q = g.th * g.tw, RB = Q * PP;
+  const int ra = min(mr, oa_per), rb = min(mr, ob1 - ob0);
+  uint32_t* fa_s = smem_mxu;                          // [ra][LA]
+  uint32_t* fb_s = fa_s + ra * LA;                    // [mr][LB]
+  uint32_t* x_s = fb_s + mr * LB;                     // [rx][cx][CwA]
+  uint32_t* a_s = x_s + t.rx * t.cx * g.CwA;          // [ha][wa][OAw]
+  uint16_t* a16 = reinterpret_cast<uint16_t*>(a_s);   // half-words, LSB first
+  if (threadIdx.x == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
+  }
+  expect_rows(bulk, &bar[0], ra, LA);
   __syncthreads();
-
-  // conv A: rows = A-halo positions, 64 at a time; columns = OA, 32 at a
-  // time (one packed word of the bit map per position and chunk)
-  const int LA = g.fha * g.fwa * g.CwA, kpa = LA * 32;
-  const int PA = t.ha * t.wa;
-  for (int pc0 = 0; pc0 < PA; pc0 += MROWS) {
-    const int p = pc0 + tid / KC;
-    const int base = p < PA ? ((p / t.wa) * t.cx + p % t.wa) * g.CwA : -1;
-    for (int o0 = 0; o0 < g.OA; o0 += NCOLS) {
-      mma_chunk(x_s, base, t.cx, g.CwA, g.fwa, wa, g.OA, o0, LA, sm);
-      const int o = o0 + lane;
-      const float c = ca[o];
-      const bool flip = fa[o] != 0;
-      for (int r = warp; r < MROWS; r += WARPS) {
-        const int pp = pc0 + r;                      // uniform in the warp
-        if (pp < PA) {
-          const int y = (kpa + chunk_dot(sm, r, lane)) / 2 - g.npad_a;
-          const bool bit = in_map(g, t, pp / t.wa, pp % t.wa) &&
-                           nb_bit(y, c, flip);
-          const unsigned word = __ballot_sync(FULL, bit);
-          if (lane == 0) a_s[pp * t.OAw + o0 / 32] = word;
-        }
-      }
-      __syncthreads();                               // sm.c free again
+  // conv A's filter slice in flight while the input halo is staged; conv
+  // B's follows once A's has landed, and loads while conv A runs
+  stage_rows(wa, LA, oa0, ra, bulk, &bar[0], fa_s);
+  stage_input(a, g, t, n, x_s);
+  for (int i = threadIdx.x; i < WARPS * 128; i += THREADS) red[i] = 0;
+  uint32_t parity[2] = {0, 0};
+  auto wait_rows = [&](int i) {
+    if (bulk) {
+      mbar_wait(&bar[i], parity[i]);
+      parity[i] ^= 1;
+    } else {
+      cp_async_wait_all();
     }
-  }
+  };
 
-  // conv B: rows = B positions ordered (pooled output q, window slot s),
-  // so each 64-row chunk holds whole 2x2 windows; columns = OB, 32 at a time
-  const int LB = g.fhb * g.fwb * t.OAw, kpb = LB * 32;
-  const int Q = g.th * g.tw, RB = Q * PF * PF;
-  for (int rc0 = 0; rc0 < RB; rc0 += MROWS) {
-    const int rr = rc0 + tid / KC;
-    int base = -1;
-    if (rr < RB) {
-      const int q = rr / (PF * PF), s = rr % (PF * PF);
-      const int by = (q / g.tw) * PF + s / PF, bx = (q % g.tw) * PF + s % PF;
-      base = (by * t.wa + bx) * t.OAw;
+  // conv A: rows = this rank's OA channels, columns = A-halo positions
+  const int kpa = LA * 32;
+  auto base_a = [&](int p) {
+    p = p < PA ? p : 0;
+    return ((p / t.wa) * t.cx + p % t.wa) * g.CwA;
+  };
+  for (int r0 = 0; r0 < oa_per; r0 += mr) {
+    const int rows = min(mr, oa_per - r0);
+    if (r0 > 0) {
+      expect_rows(bulk, &bar[0], rows, LA);
+      __syncthreads();                               // fa_s free
+      stage_rows(wa, LA, oa0 + r0, rows, bulk, &bar[0], fa_s);
     }
-    for (int o0 = 0; o0 < g.OB; o0 += NCOLS) {
-      mma_chunk(a_s, base, t.wa, t.OAw, g.fwb, wb, g.OB, o0, LB, sm);
-      for (int e = tid; e < (MROWS / (PF * PF)) * NCOLS; e += THREADS) {
-        const int qi = e / NCOLS, cc = e % NCOLS;
-        const int q = rc0 / (PF * PF) + qi, o = o0 + cc;
-        const int oy = t.oy0 + q / g.tw, ox = t.ox0 + q % g.tw;
-        if (q >= Q || o >= g.OB || oy >= g.HO || ox >= g.WO) continue;
-        const float c = cb[o];
-        const bool flip = fb[o] != 0;
-        bool any = false, all = true;
+    wait_rows(0);
+    if (r0 == 0) expect_rows(bulk, &bar[1], rb, LB);
+    __syncthreads();
+    if (r0 == 0) stage_rows(wb, LB, ob0, rb, bulk, &bar[1], fb_s);
+    const int ch0 = oa0 + r0;
+    // eq. 8 and the halo mask per bit; the 16 bits of a position in one
+    // m16 tile are OR-reduced over the 8 lanes that hold them and stored
+    // as one half-word of the bit map
+    auto epi_a = [&](int mi, int nj, const int (&acc)[4]) {
+      const int o = ch0 + 16 * mi + gq;
+      const float c0 = ca[o], c1 = ca[o + 8];
+      const bool f0 = fa[o] != 0, f1 = fa[o + 8] != 0;
+      unsigned h[2];
 #pragma unroll
-        for (int s = 0; s < PF * PF; ++s) {
-          const int y = (kpb + chunk_dot(sm, qi * PF * PF + s, cc)) / 2 -
-                        g.npad_b;
-          const bool bit = nb_bit(y, c, flip);
-          any |= bit;
-          all &= bit;
-        }
-        out[((static_cast<size_t>(n) * g.HO + oy) * g.WO + ox) * g.OB + o] =
-            static_cast<int8_t>(flip ? all : any);
+      for (int j = 0; j < 2; ++j) {
+        const int p = 8 * nj + 2 * tq + j;
+        const bool live = p < PA && in_map(g, t, p / t.wa, p % t.wa);
+        const bool b0 =
+            live && nb_bit((kpa + acc[j]) / 2 - g.npad_a, c0, f0);
+        const bool b1 =
+            live && nb_bit((kpa + acc[2 + j]) / 2 - g.npad_a, c1, f1);
+        h[j] = (static_cast<unsigned>(b0) << gq) |
+               (static_cast<unsigned>(b1) << (gq + 8));
+        h[j] |= __shfl_xor_sync(FULL, h[j], 4);
+        h[j] |= __shfl_xor_sync(FULL, h[j], 8);
+        h[j] |= __shfl_xor_sync(FULL, h[j], 16);
       }
-      __syncthreads();                               // sm.c free again
-    }
+      if (gq == 0) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int p = 8 * nj + 2 * tq + j;
+          if (p < PA)
+            a16[p * 2 * t.OAw + (ch0 + 16 * mi) / 16] =
+                static_cast<uint16_t>(h[j]);
+        }
+      }
+    };
+    run_tiles(rows / 16, (PA + 7) / 8, LA, fa_s, x_s, t.cx, g.CwA,
+              g.fwa, base_a, epi_a, red);
   }
+
+  // share the bit map: every rank's words, read from its shared memory
+  cluster.sync();
+  const int own = t.OAw / csize, span = PA * own;    // words per rank
+  for (int i = threadIdx.x; i < (csize - 1) * span; i += THREADS) {
+    const int peer = (rank + 1 + i / span) % csize, j = i % span;
+    const int w = (j / own) * t.OAw + peer * own + j % own;
+    a_s[w] = cluster.map_shared_rank(a_s, peer)[w];
+  }
+  wait_rows(1);                                      // wb's first rows
+  __syncthreads();
+  cluster_arrive();
+
+  // conv B: rows = this rank's OB channels, columns = B positions ordered
+  // (pooled output q, window slot s), so a 2x2 window is 4 adjacent columns
+  const int kpb = LB * 32;
+  auto base_b = [&](int rr) {
+    rr = rr < RB ? rr : 0;
+    const int q = rr / PP, s = rr % PP;
+    return (((q / g.tw) * PF + s / PF) * t.wa + (q % g.tw) * PF + s % PF) *
+           t.OAw;
+  };
+  auto store = [&](int q, int o, bool bit) {
+    const int oy = t.oy0 + q / g.tw, ox = t.ox0 + q % g.tw;
+    if (o < ob1 && q < Q && oy < g.HO && ox < g.WO)
+      out[((static_cast<size_t>(n) * g.HO + oy) * g.WO + ox) * g.OB + o] =
+          static_cast<int8_t>(bit);
+  };
+  for (int r0 = ob0; r0 < ob1; r0 += mr) {
+    const int rows = min(mr, ob1 - r0);
+    if (r0 > ob0) {
+      expect_rows(bulk, &bar[1], rows, LB);
+      __syncthreads();                               // fb_s free
+      stage_rows(wb, LB, r0, rows, bulk, &bar[1], fb_s);
+      wait_rows(1);
+      __syncthreads();
+    }
+    auto epi_b = [&](int mi, int nj, const int (&acc)[4]) {
+      const int o = r0 + 16 * mi + gq;
+      const bool v0 = o < ob1, v1 = o + 8 < ob1;
+      const float c0 = v0 ? cb[o] : 0.f, c1 = v1 ? cb[o + 8] : 0.f;
+      const bool f0 = v0 && fb[o] != 0, f1 = v1 && fb[o + 8] != 0;
+      const int col = 8 * nj + 2 * tq;
+      bool b[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        b[0][j] = nb_bit((kpb + acc[j]) / 2 - g.npad_b, c0, f0);
+        b[1][j] = nb_bit((kpb + acc[2 + j]) / 2 - g.npad_b, c1, f1);
+      }
+      if (PF == 2) {
+        // this lane holds slots 0-1 or 2-3 of window col / 4, lane ^ 1
+        // the others: any (max) where flip is 0, all (min) where it is 1
+        const unsigned m = (b[0][0] | b[0][1]) | (b[0][0] & b[0][1]) << 1 |
+                           (b[1][0] | b[1][1]) << 2 |
+                           (b[1][0] & b[1][1]) << 3;
+        const unsigned other = __shfl_xor_sync(FULL, m, 1);
+        const unsigned any = m | other, all = m & other;
+        if ((tq & 1) == 0) {
+          store(col / 4, o, f0 ? (all >> 1) & 1 : any & 1);
+          store(col / 4, o + 8, f1 ? (all >> 3) & 1 : (any >> 2) & 1);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          store(col + j, o, b[0][j]);
+          store(col + j, o + 8, b[1][j]);
+        }
+      }
+    };
+    run_tiles((rows + 15) / 16, (RB + 7) / 8, LB, fb_s, a_s, t.wa,
+              t.OAw, g.fwb, base_b, epi_b, red);
+  }
+  cluster_wait();
 }
 
 // Shared-memory words of a block's input halo and A bit map; mirrored by
@@ -426,11 +734,10 @@ size_t map_words(const Geom& g, int pf) {
 }
 
 template <typename Kernel>
-int launch(Kernel kernel, size_t smem, size_t static_smem, const Geom& g,
-           int N, const void* a, const void* wa, const void* ca,
-           const void* fa, const void* wb, const void* cb, const void* fb,
-           void* out, void* stream) {
-  if (smem + static_smem > 48 * 1024) {
+int launch(Kernel kernel, size_t smem, const Geom& g, int N, const void* a,
+           const void* wa, const void* ca, const void* fa, const void* wb,
+           const void* cb, const void* fb, void* out, void* stream) {
+  if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -443,6 +750,74 @@ int launch(Kernel kernel, size_t smem, size_t static_smem, const Geom& g,
       static_cast<const float*>(ca), static_cast<const uint8_t*>(fa),
       static_cast<const int32_t*>(wb), static_cast<const float*>(cb),
       static_cast<const uint8_t*>(fb), static_cast<int8_t*>(out), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Largest divisor of OA/32 that is at most MAX_CLUSTER: the mxu cluster
+// size (kernels/xnor_conv_fused.py::mxu_split mirrors it).
+int cluster_size(int OA) {
+  int c = MAX_CLUSTER;
+  while ((OA / 32) % c) --c;
+  return c;
+}
+
+// Launch an mxu kernel as clusters of csize blocks along x. The kernel's
+// dynamic shared memory limit is raised once per device to the most a block
+// can take beside MxuStatic. A cluster shape the device cannot hold at this
+// shared memory (cudaOccupancyMaxActiveClusters = 0) is refused with the
+// CUDA error; the check runs once per (device, kernel, cluster size) and
+// larger shared memory.
+template <typename Kernel>
+int launch_cluster(Kernel kernel, int pf, size_t smem, int csize,
+                   const Geom& g, int N, const void* a, const void* wa,
+                   const void* ca, const void* fa, const void* wb,
+                   const void* cb, const void* fb, void* out, int mr,
+                   int bulk, void* stream) {
+  static int raised_dev[2];
+  static int checked_dev[2][MAX_CLUSTER + 1];
+  static size_t checked_smem[2][MAX_CLUSTER + 1];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (raised_dev[pf - 1] != dev + 1) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(SMEM_LIMIT - MXU_STATIC));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    raised_dev[pf - 1] = dev + 1;
+  }
+  const int tiles_h = (g.HO + g.th - 1) / g.th;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles_h * g.tiles_w * csize, N);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = csize;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int& cdev = checked_dev[pf - 1][csize];
+  size_t& csmem = checked_smem[pf - 1][csize];
+  if (cdev != dev + 1 || smem > csmem) {
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    cdev = dev + 1;
+    csmem = smem;
+  }
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const int32_t*>(a),
+                         static_cast<const int32_t*>(wa),
+                         static_cast<const float*>(ca),
+                         static_cast<const uint8_t*>(fa),
+                         static_cast<const int32_t*>(wb),
+                         static_cast<const float*>(cb),
+                         static_cast<const uint8_t*>(fb),
+                         static_cast<int8_t*>(out), g, csize, mr, bulk);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -477,10 +852,10 @@ int xnor_conv2d_pair_vpu(const void* a, const void* wa, const void* ca,
       (map_words(g, pf) + static_cast<size_t>(CHUNK) * ((LA > LB ? LA : LB) | 1)) *
       sizeof(uint32_t);
   return pf == 2
-      ? launch(pair_vpu_kernel<2>, smem, 0, g, N, a, wa, ca, fa, wb, cb, fb,
-               out, stream)
-      : launch(pair_vpu_kernel<1>, smem, 0, g, N, a, wa, ca, fa, wb, cb, fb,
-               out, stream);
+      ? launch(pair_vpu_kernel<2>, smem, g, N, a, wa, ca, fa, wb, cb, fb, out,
+               stream)
+      : launch(pair_vpu_kernel<1>, smem, g, N, a, wa, ca, fa, wb, cb, fb, out,
+               stream);
 }
 
 int xnor_conv2d_pair_mxu(const void* a, const void* wa, const void* ca,
@@ -491,12 +866,26 @@ int xnor_conv2d_pair_mxu(const void* a, const void* wa, const void* ca,
                          int npad_b, void* stream) {
   const Geom g = make_geom(H, W, CwA, OA, OB, fha, fwa, fhb, fwb, pf, th, tw,
                            npad_a, npad_b);
-  const size_t smem = map_words(g, pf) * sizeof(uint32_t);
+  const int csize = cluster_size(OA);
+  const int LA = fha * fwa * CwA, LB = fhb * fwb * (OA / 32);
+  // filter rows per pass: MR, halved (to 16 at least) until the block fits
+  int mr = MR;
+  size_t smem = 0;
+  for (;; mr /= 2) {
+    const int ra = OA / csize < mr ? OA / csize : mr;
+    smem = (map_words(g, pf) + static_cast<size_t>(ra) * LA +
+            static_cast<size_t>(mr) * LB) * sizeof(uint32_t);
+    if (mr == 16 || smem + MXU_STATIC <= SMEM_LIMIT) break;
+  }
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int bulk = LA % 4 == 0 && LB % 4 == 0 && aligned(wa) && aligned(wb);
   return pf == 2
-      ? launch(pair_mxu_kernel<2>, smem, sizeof(MmaSmem), g, N, a, wa, ca,
-               fa, wb, cb, fb, out, stream)
-      : launch(pair_mxu_kernel<1>, smem, sizeof(MmaSmem), g, N, a, wa, ca,
-               fa, wb, cb, fb, out, stream);
+      ? launch_cluster(pair_mxu_kernel<2>, pf, smem, csize, g, N, a, wa, ca,
+                       fa, wb, cb, fb, out, mr, bulk, stream)
+      : launch_cluster(pair_mxu_kernel<1>, pf, smem, csize, g, N, a, wa, ca,
+                       fa, wb, cb, fb, out, mr, bulk, stream);
 }
 
 }  // extern "C"

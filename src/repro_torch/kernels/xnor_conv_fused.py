@@ -2,9 +2,17 @@
 and the tile rule it shares with the tuner.
 
 * ``xnor_conv2d_pair_vpu`` replaces ``repro/kernels/xnor_conv_fused.py::
-  xnor_conv2d_pair_vpu``: both convs by XNOR + ``__popc``.
+  xnor_conv2d_pair_vpu``: both convs by XNOR + ``__popc``, one block per
+  (image, tile).
 * ``xnor_conv2d_pair_mxu`` replaces ``repro/kernels/xnor_conv_fused.py::
-  xnor_conv2d_pair_mxu``: both convs by ±1 int8 WMMA, int32 sums.
+  xnor_conv2d_pair_mxu``: both convs as ±1 int8 ``mma.sync`` m16n8k32 with
+  int32 sums (filter rows on M, positions on N), launched as thread-block
+  clusters: ``mxu_split`` gives the cluster size C (the largest divisor
+  of OA/32 up to 8) and each rank's channels. Rank r computes conv A for
+  its OA/C channels over the whole halo, the ranks share the A bit map
+  through distributed shared memory, and rank r computes conv B for its
+  ceil-split share of OB. A cluster shape the card cannot schedule makes
+  the launch raise; there is no other mxu kernel to fall back to.
 
 One launch computes conv A → eq. 8 → conv B → eq. 8 → optional flip-aware
 2×2 pool; the A-output bit map stays in shared memory. Both take the
@@ -16,15 +24,17 @@ int8 bits, launch on the current stream, allocate only their output and
 count their launches (``xnor_conv2d_pair_vpu.launches``). The plain
 version is ``kernels/ref.py::xnor_conv2d_pair_ref``.
 
-Tiles. A block computes one th × tw tile of the pair's output; its shared
-memory holds the input halo, the A bit map over the halo and (vpu) a chunk
-of filter rows. ``halo_scratch`` returns those bytes exactly as the CUDA
+Tiles. A block computes one th × tw tile of the pair's output (mxu: its
+share of one tile's channels); its shared memory holds the input halo,
+the A bit map over the halo and a chunk of filter rows (vpu: 128 rows of
+either conv; mxu: up to ``MXU_ROWS`` rows of each conv, conv B's loading
+while conv A runs). ``halo_scratch`` returns those bytes exactly as the CUDA
 launchers allocate them, and a tile is legal when both variants fit the
 per-block limit. ``pick_tiles`` starts from the largest power-of-two tile
 up to (TH, TW) and halves it while it is illegal or the tile grid of one
 image is smaller than ``MIN_TILES``: with the engine's 4 slots that keeps
-at least 128 blocks in flight, about one per SM of the H100 (132), since
-the grid has no other parallel axis. Tiles never change bits.
+at least 128 tiles in flight, about one per SM of the H100 (132). Tiles
+never change bits.
 """
 from __future__ import annotations
 
@@ -40,10 +50,46 @@ MIN_TILES = 32          # tiles per image the default tile aims for
 SMEM_PER_BLOCK = 232448  # H100: opt-in shared memory per block (227 KB)
 VARIANTS = ("vpu", "mxu")
 # Mirrors of csrc/xnor_conv_fused.cu: the vpu kernel stages CHUNK filter
-# rows at an odd word stride; the mxu kernel's static shared memory is its
-# int8 k-slabs (8 x 64 x 16 + 8 x 32 x 16 bytes) and 8 int32 16x16 tiles.
+# rows at an odd word stride; the mxu kernel stages up to MR filter rows of
+# each conv per pass, as they lie in device memory, runs in clusters of at
+# most MAX_CLUSTER blocks, and its static shared memory (MxuStatic) is one
+# int32 m16n8 tile per warp (8 warps) for split-K partial sums and two
+# 8-byte mbarriers.
 VPU_CHUNK = 128
-MXU_STATIC_BYTES = 8 * 64 * 16 + 8 * 32 * 16 + 8 * 16 * 16 * 4
+MXU_ROWS = 64
+MXU_MAX_CLUSTER = 8
+MXU_STATIC_BYTES = 8 * 16 * 8 * 4 + 2 * 8
+
+
+def mxu_split(oa: int, ob: int) -> tuple[int, list[tuple[int, int]],
+                                        list[tuple[int, int]]]:
+    """The mxu launcher's cluster: (C, conv A channel ranges, conv B channel
+    ranges) per rank. C is the largest divisor of OA/32 that is at most
+    ``MXU_MAX_CLUSTER``; rank r takes OA channels [r·OA/C, (r+1)·OA/C) (a
+    multiple of 32 each) and OB channels [⌈r·OB/C⌉, ⌈(r+1)·OB/C⌉)."""
+    if oa % 32 or oa <= 0:
+        raise ValueError(f"OA={oa} must be a positive multiple of 32")
+    c = MXU_MAX_CLUSTER
+    while (oa // 32) % c:
+        c -= 1
+    return (c, [(r * oa // c, (r + 1) * oa // c) for r in range(c)],
+            [(-(-r * ob // c), -(-(r + 1) * ob // c)) for r in range(c)])
+
+
+def _mxu_bytes(words: int, oa: int, la: int, lb: int, rows: int) -> int:
+    rows_a = min(oa // mxu_split(oa, 0)[0], rows)
+    return 4 * (words + rows_a * la + rows * lb) + MXU_STATIC_BYTES
+
+
+def mxu_pass_rows(words: int, *, oa: int, la: int, lb: int) -> int:
+    """Filter rows the mxu kernel stages per pass, as its launcher picks
+    them: ``MXU_ROWS``, halved down to 16 until the block (``words`` of
+    input halo and bit map, the rows of both convs, the static tiles) fits
+    ``SMEM_PER_BLOCK``."""
+    rows = MXU_ROWS
+    while rows > 16 and _mxu_bytes(words, oa, la, lb, rows) > SMEM_PER_BLOCK:
+        rows //= 2
+    return rows
 
 
 def halo_scratch(th: int, tw: int, *, pf: int, fha: int, fwa: int,
@@ -52,15 +98,18 @@ def halo_scratch(th: int, tw: int, *, pf: int, fha: int, fwa: int,
     """Shared-memory bytes one block of ``variant`` allocates for a
     (th, tw) output tile: the input halo (pf·th+FHb+FHa−2) ×
     (pf·tw+FWb+FWa−2) × CwA words and the A bit map (pf·th+FHb−1) ×
-    (pf·tw+FWb−1) × OA/32 words, plus the vpu's staged filter chunk or the
-    mxu's static k-slabs."""
+    (pf·tw+FWb−1) × OA/32 words, plus the vpu's staged filter chunk, or
+    the mxu's min(OA/C, R) conv A rows and R conv B rows (OB does not
+    enter: a share beyond R streams in passes; ``mxu_pass_rows`` gives R)
+    and its static shared memory (``MXU_STATIC_BYTES``)."""
     ha, wa = pf * th + fhb - 1, pf * tw + fwb - 1
     words = (ha + fha - 1) * (wa + fwa - 1) * cwa + ha * wa * (oa // 32)
+    la, lb = fha * fwa * cwa, fhb * fwb * (oa // 32)
     if variant == "vpu":
-        la, lb = fha * fwa * cwa, fhb * fwb * (oa // 32)
         return 4 * (words + VPU_CHUNK * (max(la, lb) | 1))
     if variant == "mxu":
-        return 4 * words + MXU_STATIC_BYTES
+        return _mxu_bytes(words, oa, la, lb,
+                          mxu_pass_rows(words, oa=oa, la=la, lb=lb))
     raise ValueError(f"unknown variant {variant!r}; use one of {VARIANTS}")
 
 

@@ -12,6 +12,11 @@ reference, on the same numpy inputs.
   fused groups bit-exact against the sequential fold for both strategies.
 * ``plan_layer_groups``, ``default_group_tiles``, ``plan_to_dict`` and
   ``geometry_fingerprint`` against the reference's.
+* The Python mirror of the mxu kernel's launcher: its cluster size and
+  channel split (``mxu_split``), its shared memory (``halo_scratch``,
+  ``mxu_pass_rows``) against the .cu's constants, every tile the previous
+  single-block kernel allowed still legal, and the Table 2 pairs' tile
+  candidates and default tiles unchanged.
 
 The CUDA kernel K5 itself runs only on the card (``chip_smoke.py``); here
 its wrappers must refuse CPU tensors.
@@ -248,10 +253,141 @@ def test_pick_tiles_shrinks_to_fit_shared_memory():
     # and the vpu's 128 filter rows at a stride of 3*3*32 | 1 words
     assert kfused.halo_scratch(4, 8, variant="vpu", **geom) == \
         4 * (12 * 20 * 32 + 10 * 18 * 32 + 128 * 289)
+    # mxu: the same halo and map, then 64 rows of 3*3*32 = 288 words of
+    # each conv's filters (of conv A's 1024 / 8 = 128 per rank), then the
+    # static split-K tiles and mbarriers
     assert kfused.halo_scratch(4, 8, variant="mxu", **geom) == \
-        4 * (12 * 20 * 32 + 10 * 18 * 32) + kfused.MXU_STATIC_BYTES
+        4 * (12 * 20 * 32 + 10 * 18 * 32 + 64 * 288 + 64 * 288) \
+        + kfused.MXU_STATIC_BYTES
     with pytest.raises(ValueError, match="variant"):
         kfused.halo_scratch(1, 1, variant="xla", **geom)
+
+
+# ------------------------------------------ the mxu kernel's cluster mirror
+
+@pytest.mark.parametrize("words,c", [(1, 1), (2, 2), (3, 3), (8, 8), (16, 8),
+                                     (32, 8), (5, 5), (12, 6), (14, 7)])
+@pytest.mark.parametrize("ob", [40, 256, 5])
+def test_mxu_split_covers_every_channel_once(words, c, ob):
+    """C is the largest divisor of OA/32 up to 8; the OA ranges are whole
+    channel words, the OB ranges ceil-split; together each covers every
+    channel exactly once, in order."""
+    oa = 32 * words
+    got_c, oa_ranges, ob_ranges = kfused.mxu_split(oa, ob)
+    assert got_c == c and len(oa_ranges) == len(ob_ranges) == c
+    for ranges, total in ((oa_ranges, oa), (ob_ranges, ob)):
+        covered = [ch for lo, hi in ranges for ch in range(lo, hi)]
+        assert covered == list(range(total))
+    assert all((hi - lo) == oa // c and lo % 32 == 0 for lo, hi in oa_ranges)
+    sizes = [hi - lo for lo, hi in ob_ranges]
+    assert max(sizes) - min(sizes) <= 1 and max(sizes) == -(-ob // c)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        kfused.mxu_split(oa + 16, ob)
+
+
+def test_mxu_split_uneven_ob_shares():
+    """OA = 96 (C = 3) and OB = 40: shares of 14, 13 and 13 channels;
+    OA = 64 (C = 2): 20 and 20, neither a whole m16 tile."""
+    assert kfused.mxu_split(96, 40) == (3, [(0, 32), (32, 64), (64, 96)],
+                                        [(0, 14), (14, 27), (27, 40)])
+    assert kfused.mxu_split(64, 40) == (2, [(0, 32), (32, 64)],
+                                        [(0, 20), (20, 40)])
+
+
+@pytest.mark.parametrize("tile,geom,want", [
+    # CONV-3/4 at (1, 2): halo 6 x 8 x 4 words, map 4 x 6 x 8 words; 32
+    # conv A rows of 36 words, 64 conv B rows of 72
+    ((1, 2), dict(pf=2, fha=3, fwa=3, cwa=4, fhb=3, fwb=3, oa=256),
+     4 * (6 * 8 * 4 + 4 * 6 * 8 + 32 * 36 + 64 * 72)),
+    # CONV-5/6 at (1, 1): halo 6 x 6 x 8, map 4 x 4 x 16; 64 rows of 72
+    # words and 64 rows of 144
+    ((1, 1), dict(pf=2, fha=3, fwa=3, cwa=8, fhb=3, fwb=3, oa=512),
+     4 * (6 * 6 * 8 + 4 * 4 * 16 + 64 * 72 + 64 * 144)),
+])
+def test_mxu_halo_scratch_bytes_at_table2_pairs(tile, geom, want):
+    assert kfused.halo_scratch(*tile, variant="mxu", **geom) == \
+        want + kfused.MXU_STATIC_BYTES
+    assert kfused.MXU_STATIC_BYTES == 8 * 16 * 8 * 4 + 2 * 8
+
+
+def test_mxu_pass_rows_halve_until_the_block_fits():
+    """64 filter rows per pass where they fit; a geometry whose 64 rows
+    overflow the block takes 32 (16 at the least), as the launcher does."""
+    geom = dict(pf=2, fha=5, fwa=5, cwa=16, fhb=5, fwb=5, oa=512)
+    ha = wa = 2 * 4 + 4
+    words = (ha + 4) * (wa + 4) * 16 + ha * wa * 16
+    la = lb = 25 * 16
+    assert kfused.mxu_pass_rows(words, oa=512, la=la, lb=lb) == 32
+    assert kfused.halo_scratch(4, 4, variant="mxu", **geom) == 4 * (
+        words + 32 * la + 32 * lb) + kfused.MXU_STATIC_BYTES
+    assert kfused.tile_fits(4, 4, **geom)
+    assert kfused.mxu_pass_rows(100, oa=256, la=36, lb=72) == 64
+
+
+def test_mxu_mirror_matches_cuda_constants():
+    """The constants halo_scratch and mxu_split mirror, read from the .cu:
+    256 threads, MR = 64 rows per pass, clusters of at most 8, the 227 KB
+    limit, and MxuStatic = one int32 m16n8 tile per warp and two mbarriers;
+    the launcher stages ra * LA + mr * LB filter words beside the halo."""
+    import re
+    src = (_build.CSRC / "xnor_conv_fused.cu").read_text()
+    consts = dict(re.findall(r"constexpr (?:int|size_t) (\w+) = (\d+);", src))
+    assert consts["THREADS"] == "256" and consts["MR"] == str(kfused.MXU_ROWS)
+    assert consts["MAX_CLUSTER"] == str(kfused.MXU_MAX_CLUSTER)
+    assert consts["SMEM_LIMIT"] == str(kfused.SMEM_PER_BLOCK)
+    static = re.search(r"struct MxuStatic \{(.*?)\};", src, re.S).group(1)
+    assert re.findall(r"(\w+) (\w+)\[([^\]]+)\];", static) == [
+        ("int", "red", "WARPS * 128"), ("uint64_t", "bar", "2")]
+    assert kfused.MXU_STATIC_BYTES == 4 * (256 // 32) * 128 + 8 * 2
+    assert "static_cast<size_t>(ra) * LA +" in src
+    assert "static_cast<size_t>(mr) * LB" in src
+
+
+def _old_mxu_scratch(th, tw, *, pf, fha, fwa, cwa, fhb, fwb, oa):
+    """The single-block mxu kernel's shared memory (halo, map and its
+    20,480 static bytes of int8 k-slabs and accumulator tiles)."""
+    ha, wa = pf * th + fhb - 1, pf * tw + fwb - 1
+    return 4 * ((ha + fha - 1) * (wa + fwa - 1) * cwa
+                + ha * wa * (oa // 32)) + 20480
+
+
+def test_mxu_keeps_every_tile_the_old_kernel_allowed():
+    n_legal = 0
+    for pf in (1, 2):
+        for fa, fb in ((3, 3), (5, 5), (5, 3), (1, 1)):
+            for cwa in (1, 2, 4, 8, 16, 32):
+                for oa in (32, 96, 256, 512, 1024, 1440, 2048):
+                    geom = dict(pf=pf, fha=fa, fwa=fa, cwa=cwa, fhb=fb,
+                                fwb=fb, oa=oa)
+                    for th in (1, 2, 4, 8):
+                        for tw in (1, 2, 4, 8):
+                            old = (kfused.halo_scratch(
+                                th, tw, variant="vpu", **geom)
+                                <= kfused.SMEM_PER_BLOCK
+                                and _old_mxu_scratch(th, tw, **geom)
+                                <= kfused.SMEM_PER_BLOCK)
+                            n_legal += old
+                            assert not old or kfused.tile_fits(th, tw,
+                                                               **geom), geom
+    assert n_legal > 1000
+
+
+@pytest.mark.parametrize("pair,hw,geom,tiles,default", [
+    (2, 8, dict(pf=2, fha=3, fwa=3, cwa=4, fhb=3, fwb=3, oa=256),
+     [(th, tw) for th in (1, 2, 4, 8) for tw in (1, 2, 4, 8)], (1, 2)),
+    (4, 4, dict(pf=2, fha=3, fwa=3, cwa=8, fhb=3, fwb=3, oa=512),
+     [(th, tw) for th in (1, 2, 4) for tw in (1, 2, 4)], (1, 1)),
+])
+def test_table2_tile_candidates_and_default_unchanged(nets, pair, hw, geom,
+                                                      tiles, default):
+    """CONV-3/4: 16 tiles from (1, 1) to (8, 8); CONV-5/6: 9 tiles from
+    (1, 1) to (4, 4); the defaults (1, 2) and (1, 1)."""
+    from repro_torch.kernels import autotune as at
+    _, tpk = nets
+    pg = xp.pair_geometry(tpk, pair)
+    assert pg["geom"] == geom and pg["ho"] == pg["wo"] == hw
+    assert list(at.tile_candidates(hw, hw, **geom)) == tiles
+    assert kfused.pick_tiles(hw, hw, **geom) == default
 
 
 def test_plan_dict_roundtrip_with_reference_keys(nets):
