@@ -7,7 +7,11 @@ Phases, each fatal on failure (nothing is caught):
 
 1. Print the card's name and power limit, build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` and print the build time and nvcc's
-   register / shared-memory report.
+   register / shared-memory report (spelt out per kernel for K2 and K4),
+   then run the tensor-core rate probe (``kernels/mma_probe.py``: 1-bit
+   ``.xor.popc`` and ``.and.popc``, int8, and int8 with a register
+   unpack) and print its bit-MAC rates beside the SM clock and power
+   limit.
 2. Hold each kernel (K1 ``xnor_matmul_vpu``, K2 ``xnor_matmul_mxu``, K3
    ``xnor_conv2d_vpu``, K4 ``xnor_conv2d_mxu``, K5
    ``xnor_conv2d_pair_vpu`` / ``_mxu``) against its plain PyTorch version
@@ -15,7 +19,8 @@ Phases, each fatal on failure (nothing is caught):
    every legal tile), with and without thresholds, plus ragged, strided,
    unpooled and 5×5 extras (K5: also mxu clusters of fewer than 8 blocks
    and uneven OB shares, ``PAIR_EXTRAS``; each case prints its cluster
-   size); require bit-exact results. K5 mxu is also timed at every legal
+   size; K2 and K4: ``MM_EXTRAS`` and ``CONV_EXTRAS``, each printing the
+   launcher's plan from its Python mirror); require bit-exact results. K5 mxu is also timed at every legal
    tile of the path pairs. Time the kernel,
    the plain version and one PyTorch library call on the unpacked ±1
    operands (a yardstick only; the port never calls it; for K5 two cuDNN
@@ -77,7 +82,8 @@ length (S = 32768, causal, bf16), which the plain version cannot hold
 
 Phase 2 also holds K1/K2 bit-exact against their plain version at the
 LM's mode-"xnor" shapes (M = 4 per decode step and 16 for the probe,
-every projection's (K, N), no thresholds), and K6
+every projection's (K, N), no thresholds) and at the im2col shapes of
+CONV-2..6 (timed and summed apart from the kernels line), and K6
 (``binary_weight_matmul``) at the LM's shapes: bit-exact on ±1
 activations, allclose on real float32 / bfloat16 activations with a
 scale, at the tolerances of tests/test_torch_bw_matmul.py.
@@ -143,6 +149,20 @@ CONV_SHAPES = [(32, 128, 128), (16, 128, 256), (16, 256, 256),
 FC_SHAPES = [(1024, 8192, True), (1024, 1024, True), (10, 1024, False)]
 # Table 2 fused pairs CONV-3/4 and CONV-5/6: (H=W, C, OA, OB), 3x3, pooled
 PAIR_SHAPES = [(16, 128, 256, 256), (8, 256, 512, 512)]
+# K1/K2 extras (M, N, k, thresholds): ragged rows and K, one bit, a K
+# split over a cluster that does not divide Kw = 259 words
+MM_EXTRAS = [(5, 1000, 1170, True), (37, 77, 33, False), (1, 1, 1, False),
+             (9, 17, 257, True), (N_SLOTS, 64, 259 * 32 - 5, True)]
+# K3/K4 extras (n, h, w, c, o, f, stride, pad, thresholds): strided and
+# ragged, Cw = 1 (L = 9), O = 16 and 17, N = 1, a 5x5 at stride 2, and
+# CONV-6 at batch 1
+CONV_EXTRAS = [(2, 9, 9, 64, 40, 3, 2, 1, True),
+               (2, 10, 7, 48, 24, 5, 2, 2, False),
+               (3, 11, 13, 32, 33, 3, 1, 1, True),
+               (2, 12, 12, 32, 16, 3, 1, 1, True),
+               (1, 9, 10, 64, 17, 3, 1, 1, False),
+               (1, 13, 11, 96, 48, 5, 2, 2, True),
+               (1, 8, 8, 512, 512, 3, 1, 1, True)]
 # K5 extras (n, h, w, c, oa, ob, fa, fb, pool): ragged tile grids, 5x5
 # filters, ragged OB; and mxu clusters of C < 8 (OA = 96: C = 3; OA = 64:
 # C = 2) with uneven or ragged OB shares (40 over 3: 14/13/13; over 2:
@@ -352,13 +372,14 @@ def kernel_phase(bound: Bound) -> dict:
     # BCNN path shapes enter the kernels line; the LM's are summed apart
     # per decode step.
     mm_cases = [(N_SLOTS, n, k, thr, "bcnn") for n, k, thr in FC_SHAPES]
-    mm_cases += [(5, 1000, 1170, True, None), (37, 77, 33, False, None)]
-    mm_cases += [(N_SLOTS * h * h, o, 9 * c, True, None)
+    mm_cases += [(*x, None) for x in MM_EXTRAS]
+    mm_cases += [(N_SLOTS * h * h, o, 9 * c, True, "im2col")
                  for h, c, o in CONV_SHAPES]
     mm_cases += [(m, n, k, False, site) for m, site in ((N_SLOTS, "lm"),
                                                           (16, "probe"))
                  for k, n in BW_CALLS]
     lm_step_ms = {"xnor_matmul_vpu": 0.0, "xnor_matmul_mxu": 0.0}
+    im2col_ms = {"xnor_matmul_vpu": 0.0, "xnor_matmul_mxu": 0.0}
     for m, n, k, thr, site in mm_cases:
         a = bitpack.pack_bits(bitpack.pad_to_pack(rand_bits(g, (m, k), dev)))
         w = bitpack.pack_bits(bitpack.pad_to_pack(rand_bits(g, (n, k), dev)))
@@ -384,6 +405,10 @@ def kernel_phase(bound: Bound) -> dict:
                 lm_step_ms[name] += BW_CALLS[(k, n)] * d
                 print(f"  {name}: {d:.4g} ms on the device x "
                       f"{BW_CALLS[(k, n)]} per LM decode step")
+            if site == "im2col":
+                d = device_ms(run)
+                im2col_ms[name] += d
+                print(f"  {name}: {d:.4g} ms on the device (im2col shape)")
             if site != "bcnn":
                 continue
             s = stats[name]
@@ -399,21 +424,26 @@ def kernel_phase(bound: Bound) -> dict:
             s["plain_ms"] += device_ms(plain)
             s["library_ms"] += device_ms(lambda: a_pm1 @ w_pm1t)
         where = {"bcnn": " (BCNN path shape)", "lm": " (LM decode shape)",
-                 "probe": " (LM probe shape)", None: ""}[site]
+                 "probe": " (LM probe shape)", "im2col": " (im2col shape)",
+                 None: ""}[site]
+        plan = kmm.mxu_plan(m, n, w.shape[1])
         print(f"K1/K2 bit-exact vs plain at M={m} N={n} k={k} "
-              f"thresholds={thr}{where}")
+              f"thresholds={thr}{where}; K2 plan: tile {plan.bn} x "
+              f"{plan.bm}, cluster {plan.cs}, {plan.blocks} blocks, "
+              f"{plan.smem} B shared")
     print("K1/K2 per LM decode step in mode xnor (24 calls, not in the "
           "kernels line): " + ", ".join(f"{k} {v:.4f} ms on the device"
                                         for k, v in lm_step_ms.items()))
+    print("K1/K2 over the im2col shapes of CONV-2..6 at batch "
+          f"{N_SLOTS} (not in the kernels line): " + ", ".join(
+              f"{k} {v:.4f} ms on the device" for k, v in im2col_ms.items()))
 
     # --- K3 / K4: the five binary convs, plus strided / ragged extras
     cv_cases = [(N_SLOTS, h, h, c, o, 3, 1, 1, True, True)
                 for h, c, o in CONV_SHAPES]
     cv_cases += [(N_SLOTS, h, h, c, o, 3, 1, 1, False, False)
                  for h, c, o in CONV_SHAPES[::2]]
-    cv_cases += [(2, 9, 9, 64, 40, 3, 2, 1, True, False),
-                 (2, 10, 7, 48, 24, 5, 2, 2, False, False),
-                 (3, 11, 13, 32, 33, 3, 1, 1, True, False)]
+    cv_cases += [(*x, False) for x in CONV_EXTRAS]
     for n, h, wd, c, o, f, s_, p, thr, on_path in cv_cases:
         a_bits = rand_bits(g, (n, h, wd, c), dev)
         w_bits = rand_bits(g, (o, f, f, c), dev)
@@ -457,9 +487,12 @@ def kernel_phase(bound: Bound) -> dict:
             st["plain_ms"] += device_ms(plain)
             st["library_ms"] += device_ms(lambda: torch.nn.functional.conv2d(
                 a16, w16, stride=s_, padding=p))
+        plan = kconv.mxu_plan(n, ho, wo, aw.shape[3], o, f, f, s_)
         print(f"K3/K4 bit-exact vs plain at N={n} {h}x{wd} C={c} O={o} "
               f"{f}x{f} stride {s_} thresholds={thr}"
-              f"{' (path shape)' if on_path else ''}")
+              f"{' (path shape)' if on_path else ''}; K4 plan: {plan.th} x "
+              f"8 positions x {plan.bo} channels, L split {plan.ks} ways, "
+              f"{plan.blocks} blocks, {plan.smem} B shared")
 
     pair_phase(g, dev, bound, stats)
     bw_phase(g, dev, bound, stats["binary_weight_matmul"])
@@ -802,9 +835,28 @@ def build_phase() -> None:
     _build.load()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({_build.library_path().name})")
+    entry = ""
     for line in _build.build_log().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else ""
         if "Used" in line or "spill" in line or "error" in line:
             print(f"  nvcc: {line.strip()}")
+            for kernel in ("xnor_matmul_mxu_kernel", "xnor_conv2d_mxu_kernel"):
+                if kernel in entry:
+                    print(f"  nvcc {kernel}: {line.strip()}")
+
+
+def probe_phase() -> None:
+    """The tensor-core rate probe: bit-MACs per second of each MMA form,
+    beside the SM clock sampled just after and the power limit."""
+    from repro_torch.kernels import mma_probe
+    rates = mma_probe.rates()
+    clock = smi("clocks.sm")
+    print(f"mma rate probe ({smi('name,power.limit')}, SM clock {clock} "
+          f"after the run): " + ", ".join(
+              f"{name} {r:.4g} bit-MAC/s" for name, r in rates.items())
+          + f"; fastest: {max(rates, key=rates.get)} (K2 and K4 use "
+          f"b1 and.popc)")
 
 
 def cpu_reference():
@@ -1522,6 +1574,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
           f"{sys.version.split()[0]}")
     build_phase()
+    probe_phase()
     stats = kernel_phase(Bound())
     reference = cpu_reference()
     launches = serve_phase(reference)

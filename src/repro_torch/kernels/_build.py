@@ -51,6 +51,9 @@ SIGNATURES = {
     "flash_attention": _FLASH_ARGS,
     "flash_attention_tc": _FLASH_TC_ARGS,
 }
+# measurement kernels that no path launches: form, blocks, iters, sink,
+# stream (csrc/mma_probe.cu)
+PROBES = {"mma_rate_probe": [_I] * 3 + [_P] * 2}
 
 
 def nvcc_path() -> str:
@@ -126,7 +129,7 @@ def build_log() -> str:
 def load() -> ctypes.CDLL:
     """Build if needed, load once per process, declare every signature."""
     lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
+    for name, argtypes in (SIGNATURES | PROBES).items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

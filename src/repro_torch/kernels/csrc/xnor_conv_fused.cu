@@ -73,6 +73,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bits.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -88,8 +90,6 @@ constexpr int PBB = 4;      // conv B positions per thread per pass
 
 // mxu
 constexpr int MR = 64;          // most filter rows staged per pass
-constexpr int MAX_CLUSTER = 8;  // portable cluster size
-constexpr size_t SMEM_LIMIT = 232448;  // H100 opt-in shared memory / block
 // The mxu kernel's static shared memory: split-K partial sums (one m16n8
 // int32 tile per warp: K is split only when a pass has at most WARPS / 2
 // units of at most 2 tiles) and the mbarriers of the two filter slices.
@@ -297,33 +297,12 @@ pair_vpu_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ wa,
 
 // ---------------------------------------------------------------- mxu ----
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// The split cluster barrier: arrive once this block is done reading its
-// peers' shared memory, wait before it exits, so no block's bit map goes
-// away while a peer still reads it.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
+using repro::cluster_arrive;
+using repro::cluster_wait;
+using repro::cp_async4;
+using repro::cp_async_commit;
+using repro::cp_async_wait_all;
+using repro::smem_u32;
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
@@ -756,69 +735,9 @@ int launch(Kernel kernel, size_t smem, const Geom& g, int N, const void* a,
 // Largest divisor of OA/32 that is at most MAX_CLUSTER: the mxu cluster
 // size (kernels/xnor_conv_fused.py::mxu_split mirrors it).
 int cluster_size(int OA) {
-  int c = MAX_CLUSTER;
+  int c = repro::MAX_CLUSTER;
   while ((OA / 32) % c) --c;
   return c;
-}
-
-// Launch an mxu kernel as clusters of csize blocks along x. The kernel's
-// dynamic shared memory limit is raised once per device to the most a block
-// can take beside MxuStatic. A cluster shape the device cannot hold at this
-// shared memory (cudaOccupancyMaxActiveClusters = 0) is refused with the
-// CUDA error; the check runs once per (device, kernel, cluster size) and
-// larger shared memory.
-template <typename Kernel>
-int launch_cluster(Kernel kernel, int pf, size_t smem, int csize,
-                   const Geom& g, int N, const void* a, const void* wa,
-                   const void* ca, const void* fa, const void* wb,
-                   const void* cb, const void* fb, void* out, int mr,
-                   int bulk, void* stream) {
-  static int raised_dev[2];
-  static int checked_dev[2][MAX_CLUSTER + 1];
-  static size_t checked_smem[2][MAX_CLUSTER + 1];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (raised_dev[pf - 1] != dev + 1) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(SMEM_LIMIT - MXU_STATIC));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    raised_dev[pf - 1] = dev + 1;
-  }
-  const int tiles_h = (g.HO + g.th - 1) / g.th;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles_h * g.tiles_w * csize, N);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = csize;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int& cdev = checked_dev[pf - 1][csize];
-  size_t& csmem = checked_smem[pf - 1][csize];
-  if (cdev != dev + 1 || smem > csmem) {
-    int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    cdev = dev + 1;
-    csmem = smem;
-  }
-  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const int32_t*>(a),
-                         static_cast<const int32_t*>(wa),
-                         static_cast<const float*>(ca),
-                         static_cast<const uint8_t*>(fa),
-                         static_cast<const int32_t*>(wb),
-                         static_cast<const float*>(cb),
-                         static_cast<const uint8_t*>(fb),
-                         static_cast<int8_t*>(out), g, csize, mr, bulk);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
 }
 
 Geom make_geom(int H, int W, int CwA, int OA, int OB, int fha, int fwa,
@@ -875,17 +794,17 @@ int xnor_conv2d_pair_mxu(const void* a, const void* wa, const void* ca,
     const int ra = OA / csize < mr ? OA / csize : mr;
     smem = (map_words(g, pf) + static_cast<size_t>(ra) * LA +
             static_cast<size_t>(mr) * LB) * sizeof(uint32_t);
-    if (mr == 16 || smem + MXU_STATIC <= SMEM_LIMIT) break;
+    if (mr == 16 || smem + MXU_STATIC <= repro::SMEM_LIMIT) break;
   }
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   const int bulk = LA % 4 == 0 && LB % 4 == 0 && aligned(wa) && aligned(wb);
-  return pf == 2
-      ? launch_cluster(pair_mxu_kernel<2>, pf, smem, csize, g, N, a, wa, ca,
-                       fa, wb, cb, fb, out, mr, bulk, stream)
-      : launch_cluster(pair_mxu_kernel<1>, pf, smem, csize, g, N, a, wa, ca,
-                       fa, wb, cb, fb, out, mr, bulk, stream);
+  const dim3 grid((g.HO + th - 1) / th * g.tiles_w * csize, N);
+  return repro::launch_cluster(
+      pf == 2 ? pair_mxu_kernel<2> : pair_mxu_kernel<1>, grid, dim3(csize),
+      THREADS, smem, stream, a, wa, ca, fa, wb, cb, fb, out, g, csize, mr,
+      bulk);
 }
 
 }  // extern "C"

@@ -4,7 +4,10 @@
 * ``xnor_conv2d_vpu`` (K3) replaces ``repro/kernels/xnor_conv.py::
   xnor_conv2d_vpu``: XNOR + ``__popc`` over a halo tile in shared memory.
 * ``xnor_conv2d_mxu`` (K4) replaces ``repro/kernels/xnor_conv.py::
-  xnor_conv2d_mxu``: gathered patch rows, ±1 int8 unpack, WMMA dot.
+  xnor_conv2d_mxu``: the 1-bit tensor-core product ``mma.sync m16n8k256
+  .b1 .and.popc`` between filter rows (on the MMA's rows) and the patch
+  words of 8 output positions (its columns), read from a halo tile in
+  shared memory; ``mxu_plan`` mirrors the launcher's choice of tile.
 
 Both take the channel-packed NHWC image (N, H, W, Cw) int32 — unpadded:
 the kernels read zero words (−1 bits) outside the image — and the
@@ -16,11 +19,128 @@ version is ``kernels/ref.py::xnor_conv2d_ref``.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from repro_torch.core import bitpack
 from repro_torch.kernels import _build
-from repro_torch.kernels.xnor_matmul import check_thresholds, check_words
+from repro_torch.kernels.xnor_matmul import (SMEM_PER_BLOCK, WAVE,
+                                             check_thresholds, check_words,
+                                             pow2_at_least)
+
+# Mirrors of csrc/xnor_conv.cu (K4): 4 warps a block, tiles of up to TH
+# output rows of TW columns (an n8 tile is one row), at most K4_NT n8
+# tiles per warp unit.
+K4_THREADS = 128
+K4_NT = 4
+TH = 8
+TW = 8
+
+
+@dataclass(frozen=True)
+class MxuConvPlan:
+    """K4's launch: a block takes ``th`` x TW output positions and ``bo``
+    channels of one image, stages the halo (``sh`` x ``sw`` pixels at
+    ``pix`` words each) and streams the filter words ``lc`` at a time;
+    ``smem`` bytes of dynamic shared memory."""
+    n: int
+    ho: int
+    wo: int
+    o: int
+    ll: int
+    th: int
+    bo: int
+    lc: int
+    sh: int
+    sw: int
+    pix: int
+    smem: int
+
+    @property
+    def steps(self) -> int:
+        return -(-self.ll // 8)
+
+    @property
+    def blocks(self) -> int:
+        return (self.n * -(-self.ho // self.th) * -(-self.wo // TW)
+                * -(-self.o // self.bo))
+
+    @property
+    def units(self) -> int:
+        """(m16 tile, up to K4_NT n8 tiles) units of a block."""
+        return self.bo // 16 * -(-self.th // K4_NT)
+
+    @property
+    def ks(self) -> int:
+        """Warps that split L for one unit: the largest power of two with
+        ks·units <= warps and ks <= steps."""
+        ks = 1
+        while 2 * ks * self.units <= K4_THREADS // 32 and 2 * ks <= self.steps:
+            ks *= 2
+        return ks
+
+    def l_slices(self) -> list[tuple[int, int, int]]:
+        """(warp slice, first word, end word) of every share of L one warp
+        computes for one unit: per pass of lc words, the pass's steps split
+        over ks slices. Words past L are the zero pad, cut off here."""
+        out = []
+        for l0 in range(0, self.ll, self.lc):
+            q_lo = l0 // 8
+            np_ = min(self.lc // 8, self.steps - q_lo)
+            for sl in range(self.ks):
+                a = q_lo + sl * np_ // self.ks
+                b = q_lo + (sl + 1) * np_ // self.ks
+                out.append((sl, 8 * a, min(8 * b, self.ll)))
+        return out
+
+
+def _conv_smem(th, bo, lc, sh, sw, pix, ll) -> int:
+    tp, l8 = th * TW, -(-ll // 8) * 8
+    return 4 * (bo * (lc + 4) + sh * sw * pix + l8 + tp * (bo + 4))
+
+
+def mxu_plan(n: int, ho: int, wo: int, cw: int, o: int, fh: int, fw: int,
+             stride: int) -> MxuConvPlan:
+    """The launcher's plan (``csrc/xnor_conv.cu::conv_plan``): bo and th
+    from the largest (64, TH), bo halved to 32, then th, then bo to 16
+    until the blocks make a wave; then lc (L rounded up to 8), th and bo
+    halved until the block's shared memory fits. The pixel stride is the
+    least P >= Cw with stride·P = 4 (mod 8), or Cw. Raises where nothing
+    fits, as the launcher refuses the launch."""
+    ll = fh * fw * cw
+    bo = pow2_at_least(o, 16, 64)
+    th = pow2_at_least(ho, 1, TH)
+
+    def blocks():
+        return n * -(-ho // th) * -(-wo // TW) * -(-o // bo)
+
+    while blocks() < WAVE:
+        if bo > 32:
+            bo //= 2
+        elif th > 1:
+            th //= 2
+        elif bo > 16:
+            bo //= 2
+        else:
+            break
+    pix = next((q for q in range(cw, cw + 8) if stride * q % 8 == 4), cw)
+    lc = -(-ll // 8) * 8
+    while True:
+        sh, sw = (th - 1) * stride + fh, (TW - 1) * stride + fw
+        smem = _conv_smem(th, bo, lc, sh, sw, pix, ll)
+        if smem <= SMEM_PER_BLOCK:
+            break
+        if lc > 8:
+            lc = (lc // 2 + 7) // 8 * 8
+        elif th > 1:
+            th //= 2
+        elif bo > 16:
+            bo //= 2
+        else:
+            raise ValueError(f"K4 cannot fit a block for Cw={cw}, "
+                             f"{fh}x{fw}/s{stride}")
+    return MxuConvPlan(n, ho, wo, o, ll, th, bo, lc, sh, sw, pix, smem)
 
 
 def pack_conv_weights(w: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,11 @@
 * ``xnor_matmul_vpu`` (K1) replaces ``repro/kernels/xnor_matmul.py::
   xnor_matmul_vpu``: XNOR + ``__popc`` on the CUDA cores.
 * ``xnor_matmul_mxu`` (K2) replaces ``repro/kernels/xnor_matmul.py::
-  xnor_matmul_mxu``: ±1 int8 unpack + WMMA tensor-core dot, int32 sums.
+  xnor_matmul_mxu``: the 1-bit tensor-core product ``mma.sync m16n8k256
+  .b1 .and.popc`` on the packed words (output channels on the MMA's rows,
+  activation rows on its columns), K split over warps and a thread-block
+  cluster where tiles are too few for a wave; ``mxu_plan`` mirrors the
+  launcher's choice.
 * ``binary_weight_matmul`` (K6) replaces ``repro/kernels/xnor_matmul.py::
   binary_weight_matmul``: real activations × packed ±1 weights on the
   CUDA cores, float32 sums.
@@ -22,10 +26,98 @@ plain versions on CPU tensors.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from repro_torch.core import bitpack
 from repro_torch.kernels import _build
+
+
+# Mirrors of csrc/xnor_matmul.cu (K2) and csrc/bits.cuh: 4 warps a block,
+# at most K2_PASS words of K staged per pass, a wave of WAVE blocks (the
+# H100's SMs), clusters of at most MAX_CLUSTER, the per-block limit.
+K2_THREADS = 128
+K2_PASS = 256
+WAVE = 132
+MAX_CLUSTER = 8
+SMEM_PER_BLOCK = 232448
+
+
+def pow2_at_least(x: int, lo: int, hi: int) -> int:
+    p = lo
+    while p < x and p < hi:
+        p *= 2
+    return p
+
+
+@dataclass(frozen=True)
+class MxuPlan:
+    """K2's launch for (M, N, Kw): tiles of ``bn`` output channels x ``bm``
+    activation rows, K in 8-word steps split over a cluster of ``cs``
+    blocks and, inside a block, over its warps; ``pass_words`` of K staged
+    at once; ``smem`` bytes of dynamic shared memory per block."""
+    m: int
+    n: int
+    kw: int
+    bn: int
+    bm: int
+    cs: int
+    pass_words: int
+    smem: int
+
+    @property
+    def steps(self) -> int:
+        return -(-self.kw // 8)
+
+    @property
+    def blocks(self) -> int:
+        return -(-self.n // self.bn) * -(-self.m // self.bm) * self.cs
+
+    def rank_steps(self, rank: int) -> tuple[int, int]:
+        return rank * self.steps // self.cs, (rank + 1) * self.steps // self.cs
+
+    def k_slices(self) -> list[tuple[int, int, int]]:
+        """(rank, warp k-slice, first word, end word) of every share of K
+        one warp computes for one m16 tile: per rank, per pass, the pass's
+        steps split over the K2_THREADS / 32 / (bn / 16) warp slices.
+        Words past Kw are the zero pad and are cut off here."""
+        ksw = K2_THREADS // 32 // (self.bn // 16)
+        out = []
+        for r in range(self.cs):
+            lo, hi = self.rank_steps(r)
+            for p0 in range(lo, hi, self.pass_words // 8):
+                np_ = min(p0 + self.pass_words // 8, hi) - p0
+                for sl in range(ksw):
+                    a = p0 + sl * np_ // ksw
+                    b = p0 + (sl + 1) * np_ // ksw
+                    out.append((r, sl, 8 * a, min(8 * b, self.kw)))
+        return out
+
+
+def mxu_plan(m: int, n: int, kw: int) -> MxuPlan:
+    """The launcher's plan (``csrc/xnor_matmul.cu::mm_plan``): the largest
+    tiles (64 x 64) shrunk, bn first, until the tiles make a wave; then
+    the cluster doubled (at most 8, at least one 8-word step per rank)
+    until the blocks do."""
+    bm = pow2_at_least(m, 8, 64)
+    bn = pow2_at_least(n, 16, 64)
+
+    def tiles():
+        return -(-n // bn) * -(-m // bm)
+
+    while tiles() < WAVE and (bn > 16 or bm > 8):
+        if bn > 16:
+            bn //= 2
+        else:
+            bm //= 2
+    steps = -(-kw // 8)
+    cs = 1
+    while cs < MAX_CLUSTER and 2 * cs <= steps and tiles() * cs < WAVE:
+        cs *= 2
+    pass_words = min(-(-steps // cs) * 8, K2_PASS)
+    smem = 4 * ((bn + bm) * (pass_words + 4) + bm * (bn + 4))
+    return MxuPlan(m, n, kw, bn, bm, cs, pass_words, smem)
 
 
 def check_thresholds(thr_c, thr_flip, n: int, device) -> None:

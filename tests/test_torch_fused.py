@@ -328,10 +328,14 @@ def test_mxu_mirror_matches_cuda_constants():
     """The constants halo_scratch and mxu_split mirror, read from the .cu:
     256 threads, MR = 64 rows per pass, clusters of at most 8, the 227 KB
     limit, and MxuStatic = one int32 m16n8 tile per warp and two mbarriers;
-    the launcher stages ra * LA + mr * LB filter words beside the halo."""
+    the launcher stages ra * LA + mr * LB filter words beside the halo. The
+    cluster bound and the limit live in csrc/bits.cuh, which K5 shares
+    with K2 and K4."""
     import re
     src = (_build.CSRC / "xnor_conv_fused.cu").read_text()
-    consts = dict(re.findall(r"constexpr (?:int|size_t) (\w+) = (\d+);", src))
+    assert '#include "bits.cuh"' in src
+    consts = dict(re.findall(r"constexpr (?:int|size_t) (\w+) = (\d+);",
+                             src + (_build.CSRC / "bits.cuh").read_text()))
     assert consts["THREADS"] == "256" and consts["MR"] == str(kfused.MXU_ROWS)
     assert consts["MAX_CLUSTER"] == str(kfused.MXU_MAX_CLUSTER)
     assert consts["SMEM_LIMIT"] == str(kfused.SMEM_PER_BLOCK)
