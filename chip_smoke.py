@@ -7,7 +7,8 @@ Phases, each fatal on failure (nothing is caught):
 
 1. Print the card's name and power limit, build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` and print the build time and nvcc's
-   register / shared-memory report (spelt out per kernel for K2 and K4),
+   register / shared-memory report (spelt out per kernel for K2, K4, K5
+   vpu and K6),
    then run the tensor-core rate probe (``kernels/mma_probe.py``: 1-bit
    ``.xor.popc`` and ``.and.popc``, int8, and int8 with a register
    unpack) and print its bit-MAC rates beside the SM clock and power
@@ -17,11 +18,14 @@ Phases, each fatal on failure (nothing is caught):
    ``xnor_conv2d_pair_vpu`` / ``_mxu``) against its plain PyTorch version
    (``kernels/ref.py``) on the card at the Table 2 path's shapes (K5 at
    every legal tile), with and without thresholds, plus ragged, strided,
-   unpooled and 5×5 extras (K5: also mxu clusters of fewer than 8 blocks
+   unpooled and 5×5 extras (K5: also clusters of fewer than 8 blocks
    and uneven OB shares, ``PAIR_EXTRAS``; each case prints its cluster
    size; K2 and K4: ``MM_EXTRAS`` and ``CONV_EXTRAS``, each printing the
-   launcher's plan from its Python mirror); require bit-exact results. K5 mxu is also timed at every legal
-   tile of the path pairs. Time the kernel,
+   launcher's plan from its Python mirror); require bit-exact results.
+   Both K5 variants are also timed at every legal tile of the path pairs
+   (with the sum of each pair's fastest tile beside the default tiles'),
+   and K6 beside ``torch.mm`` at M = 4, 16 and 128; K5 vpu and K6 also
+   print the profiler's kernel-only µs per call. Time the kernel,
    the plain version and one PyTorch library call on the unpacked ±1
    operands (a yardstick only; the port never calls it; for K5 two cuDNN
    convs and a max-pool) by their device time per call (``device_ms``:
@@ -174,6 +178,13 @@ PAIR_EXTRAS = [(2, 10, 6, 32, 32, 32, 3, 3, False),
 PAIR_EXTRAS += [(n, 8, 8, 64, oa, 40, 3, 3, pool) for n in (1, N_SLOTS)
                 for oa in (96, 64) for pool in (True, False)]
 PAIR_EXTRAS += [(1, 8, 8, 128, 256, 200, 3, 3, True)]
+# ... and the vpu kernel's other paths: CwA 4 and OA/32 4 (16-byte units
+# outside the compile-time Table 2 geometries), and shares of more than one
+# 64-row pass, by TMA and cp.async (OA = 1024: C = 8, 128 conv A rows and
+# 65 conv B rows a rank; OA = 352: C = 1, 352 and 100 rows)
+PAIR_EXTRAS += [(2, 8, 8, 128, 128, 64, 3, 3, True),
+                (1, 4, 4, 128, 1024, 520, 3, 3, True),
+                (1, 4, 4, 32, 352, 100, 3, 3, True)]
 # XNOR LM (configs/xnor_lm_tiny.py::CONFIG, d 128, d_ff 256, 4 layers):
 # K6 calls per decode step by (K, N) — q/k/v/o, up, down in every layer
 BW_CALLS = {(128, 128): 16, (128, 256): 4, (256, 128): 4}
@@ -302,6 +313,15 @@ def kernel_rows(fn, n: int = 20) -> list[tuple[float, int, str]]:
         if t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((t / n / 1e3, ev.count // n, ev.key))
     return sorted(rows, reverse=True)
+
+
+def kernel_us(fn, name: str, n: int = 20) -> str:
+    """The profiler's kernel-only µs per call of ``fn`` for the kernels
+    whose name holds ``name``, or "not measured" when it recorded none."""
+    rows = [r for r in kernel_rows(fn, n) if name in r[2]]
+    if not rows:
+        return "not measured"
+    return f"{sum(r[0] for r in rows) * 1e3:.3f} µs"
 
 
 def profile_forward(fwd, x, n: int = 20) -> None:
@@ -533,6 +553,7 @@ def pair_phase(g, dev, bound: Bound, stats: dict) -> None:
     from repro_torch.kernels import xnor_conv as kconv
     from repro_torch.kernels import xnor_conv_fused as kfused
 
+    best = {"xnor_conv2d_pair_vpu": 0.0, "xnor_conv2d_pair_mxu": 0.0}
     pr_cases = [(N_SLOTS, h, h, c, oa, ob, 3, 3, True, True)
                 for h, c, oa, ob in PAIR_SHAPES]
     pr_cases += [(*x, False) for x in PAIR_EXTRAS]
@@ -588,11 +609,14 @@ def pair_phase(g, dev, bound: Bound, stats: dict) -> None:
             st["call_ms"] += time_ms(run)
             print(f"  {name} at the path tile {path_tile}: {d:.4g} ms on "
                   f"the device, bound {max(t_b, t_o):.4g} ms")
-            if variant == "mxu":
-                print(f"  {name} {case}, device ms per tile "
-                      f"(cluster of {csize}): " + ", ".join(
-                          f"{t} {device_ms(lambda t=t: run(tile=t)):.4g}"
-                          for t in tiles))
+            per_tile = {t: device_ms(lambda t=t: run(tile=t)) for t in tiles}
+            best[name] += min(per_tile.values())
+            print(f"  {name} {case}, device ms per tile (cluster of "
+                  f"{csize}): " + ", ".join(f"{t} {v:.4g}"
+                                           for t, v in per_tile.items()))
+            print(f"  {name} at the path tile {path_tile}: kernel only "
+                  f"{kernel_us(run, 'pair_' + variant)} per call "
+                  f"(torch.profiler)")
             st["plain_ms"] += device_ms(plain)
             a16 = bitpack.decode_pm1(a_bits, torch.float16).permute(
                 0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
@@ -610,10 +634,16 @@ def pair_phase(g, dev, bound: Bound, stats: dict) -> None:
                     torch.nn.functional.conv2d(mid16, wb16,
                                                padding=fb // 2), 2)
             st["library_ms"] += device_ms(library)
-        print(f"K5 bit-exact vs plain at {case}, tiles {list(tiles)}; mxu "
-              f"cluster of {csize}, OB shares "
-              f"{sorted({hi - lo for lo, hi in ob_split})}"
+        print(f"K5 vpu and mxu bit-exact vs plain at {case}, tiles "
+              f"{list(tiles)}; both in clusters of {csize}, OB shares "
+              f"{sorted({hi - lo for lo, hi in ob_split})}, vpu "
+              f"{kfused.halo_scratch(*path_tile, variant='vpu', **geom)} B "
+              f"shared at tile {path_tile}"
               f"{' (path shape)' if on_path else ''}")
+    print("K5 over the two path pairs at batch "
+          f"{N_SLOTS}, each pair at its fastest tile (default tiles in the "
+          f"kernels line): " + ", ".join(f"{k} {v:.4f} ms on the device"
+                                         for k, v in best.items()))
 
 
 def bw_phase(g, dev, bound: Bound, st: dict) -> None:
@@ -662,27 +692,39 @@ def bw_phase(g, dev, bound: Bound, st: dict) -> None:
                 f"|kernel - plain| = {(got.float() - want.float()).abs().max()}")
             real_err[dt] = max(real_err[dt],
                                float((got.float() - want.float()).abs().max()))
+        plan = kmm.bw_plan(m, n, w.shape[1])
         print(f"K6 vs plain at M={m} K={k} N={n}: ±1 bit-exact, real "
-              f"float32 / bfloat16 with scale allclose"
+              f"float32 / bfloat16 with scale allclose; grid {plan.grid} "
+              f"of one warp, row tile {plan.mt}"
               f"{' (path shape)' if on_path else ''}")
+        d = device_ms(run)
+        if (k, n) not in BW_CALLS:
+            print(f"  binary_weight_matmul M={m} K={k} N={n}: {d:.4g} ms on "
+                  f"the device")
+            continue
+        a16 = a.to(torch.bfloat16)
+        w16t = bitpack.decode_pm1(bitpack.unpack_bits(w),
+                                  torch.bfloat16).T.contiguous()
+
+        def library():
+            return torch.mm(a16, w16t, out_dtype=torch.float32)
+
+        lib = device_ms(library)
+        print(f"  binary_weight_matmul M={m} K={k} N={n}: {d:.4g} ms on the "
+              f"device, torch.mm bf16 -> f32 {lib:.4g} ms; kernel only "
+              f"{kernel_us(run, 'binary_weight_matmul')} vs torch.mm "
+              f"{kernel_us(library, '')} per call (torch.profiler)")
         if not on_path:
-            print(f"  binary_weight_matmul M={m} K={k} N={n}: "
-                  f"{device_ms(run):.4g} ms on the device")
             continue
         calls = BW_CALLS[(k, n)]
         t_b, t_o = bound("bf16", a.numel() * 4 + w.numel() * 4 + m * n * 4,
                          m * n * k)
         st["t_bytes"] += calls * t_b
         st["t_ops"] += calls * t_o
-        d = device_ms(run)
         st["ms"] += calls * d
         st["call_ms"] += calls * time_ms(run)
         st["plain_ms"] += calls * device_ms(plain)
-        a16 = a.to(torch.bfloat16)
-        w16t = bitpack.decode_pm1(bitpack.unpack_bits(w),
-                                  torch.bfloat16).T.contiguous()
-        st["library_ms"] += calls * device_ms(
-            lambda: torch.mm(a16, w16t, out_dtype=torch.float32))
+        st["library_ms"] += calls * lib
         print(f"  binary_weight_matmul: {d:.4g} ms on the device x {calls} "
               f"per decode step, bound {max(t_b, t_o):.4g} ms")
     print(f"K6 real-activation max |kernel - plain|: float32 "
@@ -841,7 +883,8 @@ def build_phase() -> None:
             entry = line.split("'")[1] if "'" in line else ""
         if "Used" in line or "spill" in line or "error" in line:
             print(f"  nvcc: {line.strip()}")
-            for kernel in ("xnor_matmul_mxu_kernel", "xnor_conv2d_mxu_kernel"):
+            for kernel in ("xnor_matmul_mxu_kernel", "xnor_conv2d_mxu_kernel",
+                           "pair_vpu_kernel", "binary_weight_matmul_kernel"):
                 if kernel in entry:
                     print(f"  nvcc {kernel}: {line.strip()}")
 

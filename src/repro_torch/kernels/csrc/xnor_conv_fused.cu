@@ -28,29 +28,53 @@
 //   small. What the fusion saves is the A-output bit map's round trip
 //   through device memory, its pack_bits pass and one launch.
 //
-// Design, both variants: a block computes one th x tw tile of the pair's
-//   output. It stages the input words of its halo, (pf*th+fhb+fha-2) x
-//   (pf*tw+fwb+fwa-2) x CwA, in shared memory, with zero words outside the
-//   image (no padded copy in device memory), computes conv A over the
-//   A-output halo (pf*th+fhb-1) x (pf*tw+fwb-1), the positions conv B's
-//   tile reads, applies eq. 8 and the halo mask, and re-packs the bits
-//   into channel words of a bit map in shared memory. Conv B reads that
-//   map, and its epilogue thresholds and pools in registers. Halo
-//   positions are recomputed by neighbouring tiles, never stored.
-// vpu: one block per (image, tile). Filter rows stream through shared
-//   memory 128 at a time at an odd word stride (conflict-free reads, lane =
-//   row); each thread keeps PBA / PBB agree-counts in registers per filter
-//   word; one __ballot_sync builds a channel word of the map.
-// mxu: a thread-block cluster of C blocks per (image, tile), C the largest
-//   divisor of OA/32 that is at most 8 (portable; 8 at both Table 2 pairs,
-//   so 8x the blocks of one per tile). Rank r computes conv A for OA/C
-//   channels over the whole A halo into its own words of the bit map;
-//   after a cluster barrier it copies the peers' words from their shared
-//   memory (DSMEM), so conv A is never recomputed across the cluster, and
-//   computes conv B for its ceil-split share of OB (ragged shares masked).
-//   A second, split cluster barrier keeps every map alive until the last
-//   peer has read it. Both products run as mma.sync m16n8k32 s8 with
-//   filter rows on M and positions on N (conv B's 4 positions at CONV-5/6
+// Design, both variants: a thread-block cluster of C blocks per (image,
+//   th x tw output tile), C the largest divisor of OA/32 that is at most 8
+//   (portable; 8 at both Table 2 pairs, so 8x the blocks of one per tile:
+//   1,024 and 512 at batch 4). Each block stages the input words of the
+//   halo, (pf*th+fhb+fha-2) x (pf*tw+fwb+fwa-2) x CwA, in shared memory,
+//   with zero words outside the image (no padded copy in device memory).
+//   Rank r computes conv A for its OA/C channels over the whole A-output
+//   halo (pf*th+fhb-1) x (pf*tw+fwb-1), the positions conv B's tile reads,
+//   applies eq. 8 and the halo mask, and packs the bits into its channel
+//   words of the bit map; the ranks share the map through distributed
+//   shared memory (DSMEM), so conv A is never recomputed across the
+//   cluster. Rank r then computes conv B for its ceil-split share of OB
+//   (ragged shares masked), and its epilogue thresholds and pools in
+//   registers. Halo positions are recomputed by neighbouring tiles, never
+//   stored. A cluster shape the card cannot schedule makes the launch fail.
+// vpu: XNOR + __popc on the CUDA cores (agree = 32 L - sum popc(x XOR w),
+//   no NOT). Lane = filter row; each thread register-blocks VP = 4
+//   positions, so one 16-byte load of its filter row serves 4 positions and
+//   one broadcast 16-byte load of a patch 4 words (V = 4 words a load where
+//   CwA and OA/32 are multiples of 4, else 1). The four XOR words of a
+//   position pass through two carry-save full adders into a running word,
+//   so a 16-byte unit costs 2 popcounts instead of 4. The rank's filter
+//   rows of each conv, 32 or 64 at the Table 2 pairs, arrive by one TMA
+//   bulk copy on an mbarrier (rows as they lie, V = 4), conv B's while conv
+//   A runs; the halo by cp.async. Where rows are not whole 16-byte units,
+//   every copy is cp.async and rows lie at an odd stride; shares beyond VR
+//   = 64 rows stream in further passes. The grid is (tile columns x C, tile
+//   rows, images), the cluster split comes from the host, and position
+//   tables are built once per block by warp = row, lane = column: no block
+//   divides (a runtime division is a chain of some twenty instructions). A
+//   warp unit is 32 rows x 4 positions; with at most 4 units, K is split
+//   over warps and the sums meet by shared-memory atomics. A __ballot_sync
+//   packs a channel word of the A map, and lanes 0 .. C-1 store it into the
+//   map of every rank (DSMEM) after a first, split cluster barrier (every
+//   peer has started) and before a second (every map complete), after
+//   which no block touches a peer's memory. The filters (3 x 3), CwA (4, 8)
+//   and OA/32 (8, 16) of the Table 2 pairs are template constants; other
+//   geometries run the same kernel with them read at run time. 64
+//   registers, so 4 blocks fit an SM. What holds it (phase timestamps on
+//   the card, PERF.md) is each block's latency at 3 to 4 blocks an SM: its
+//   first 2 us go to start-up and issuing copies, and the cluster barrier
+//   takes about 1 us of the 9 to 12.
+// mxu: rank r computes its words of the bit map into its own shared
+//   memory; after a cluster barrier it copies the peers' words from theirs
+//   (DSMEM). A second, split cluster barrier keeps every map alive until
+//   the last peer has read it. Both products run as mma.sync m16n8k32 s8
+//   with filter rows on M and positions on N (conv B's 4 positions at CONV-5/6
 //   fill half an n8 tile, not 4 of 64 rows), int32 accumulators (exact at
 //   any k). The rank's filter rows, up to MR = 64 per pass (32 or 16 where
 //   64 do not fit the block; larger shares stream through in further
@@ -75,19 +99,57 @@
 
 #include "bits.cuh"
 
+// Phase stamps for benchmarks/torch_vpu_phases.py. Built with
+// REPRO_VPU_PHASES defined, thread 0 of every vpu block writes %globaltimer
+// at VPU_PHASE(i), i = 0 .. 6, and its SM in column 7 of vpu_phases, which
+// vpu_phases_read copies out; otherwise VPU_PHASE is empty.
+#ifdef REPRO_VPU_PHASES
+__device__ unsigned long long vpu_phases[1 << 16][8];
+#define VPU_PHASE(i)                                                        \
+  if (threadIdx.x == 0) {                                                   \
+    const size_t b =                                                        \
+        (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;     \
+    unsigned long long now;                                                 \
+    unsigned sm;                                                            \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));                 \
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));                         \
+    vpu_phases[b][i] = now;                                                 \
+    vpu_phases[b][7] = sm;                                                  \
+  }
+extern "C" int vpu_phases_read(void* dst, size_t bytes) {
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, vpu_phases, bytes));
+}
+#else
+#define VPU_PHASE(i)
+#endif
+
 namespace {
 
 namespace cg = cooperative_groups;
+using repro::cluster_arrive;
+using repro::cluster_wait;
+using repro::cp_async16;
+using repro::cp_async4;
+using repro::cp_async_commit;
+using repro::cp_async_wait_all;
+using repro::smem_u32;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
 // vpu
-constexpr int CHUNK = 128;  // filter rows staged in shared memory per pass
-constexpr int PBA = 8;      // conv A positions per thread per pass
-constexpr int PBB = 4;      // conv B positions per thread per pass
-
+constexpr int VP = 4;       // positions per thread: its register block
+constexpr int VR = 64;      // most filter rows staged per pass
+// The vpu kernel's static shared memory: split-K partial sums, one int per
+// (lane, position) of at most WARPS / 2 warp units (K is split only when a
+// pass has at most that many units), and the mbarriers of the two TMA
+// stages (conv A's filter rows, conv B's rows).
+struct VpuStatic {
+  int red[WARPS / 2 * 32 * VP];
+  uint64_t bar[2];
+};
+constexpr size_t VPU_STATIC = sizeof(VpuStatic);
 // mxu
 constexpr int MR = 64;          // most filter rows staged per pass
 // The mxu kernel's static shared memory: split-K partial sums (one m16n8
@@ -104,8 +166,13 @@ struct Geom {
   int fha, fwa, fhb, fwb;
   int HO, WO;     // output extent, H / pf and W / pf
   int th, tw;     // output tile
-  int tiles_w;
+  int tiles_w, tiles_h;
   int npad_a, npad_b;
+  // the cluster: csize blocks, OA / csize conv A channels each, and rank
+  // r's conv B channels [ob_split[r], ob_split[r + 1]) (computed on the
+  // host, so that no block divides by csize)
+  int csize, oa_per;
+  int ob_split[repro::MAX_CLUSTER + 1];
 };
 
 // Per-block tile geometry derived from Geom and the block's tile index.
@@ -118,21 +185,53 @@ struct Tile {
 };
 
 template <int PF>
-__device__ __forceinline__ Tile make_tile(const Geom& g, int tile) {
+__device__ __forceinline__ Tile make_tile(const Geom& g, int ty, int tx) {
   Tile t;
   t.ha = PF * g.th + g.fhb - 1;
   t.wa = PF * g.tw + g.fwb - 1;
   t.rx = t.ha + g.fha - 1;
   t.cx = t.wa + g.fwa - 1;
-  t.oy0 = (tile / g.tiles_w) * g.th;
-  t.ox0 = (tile % g.tiles_w) * g.tw;
+  t.oy0 = ty * g.th;
+  t.ox0 = tx * g.tw;
   t.ay0 = t.oy0 * PF - g.fhb / 2;
   t.ax0 = t.ox0 * PF - g.fwb / 2;
   t.OAw = g.OA / 32;
   return t;
 }
 
-// Stage the block's input halo: x_s[y][x][cw], zero words outside the image.
+// Start copying the vpu block's input halo into x_s[y][x][cw] by cp.async
+// (16 bytes a copy where CwA and a allow it), zero words outside the image:
+// warp = halo row, lane = position, so no index is divided. The caller
+// commits and waits.
+__device__ __forceinline__ void stage_halo(const int32_t* __restrict__ a,
+                                           const Geom& g, const Tile& t,
+                                           int n, uint32_t* x_s) {
+  const bool vec =
+      g.CwA % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int iy0 = t.ay0 - g.fha / 2, ix0 = t.ax0 - g.fwa / 2;
+  for (int y = warp; y < t.rx; y += WARPS) {
+    const int iy = iy0 + y;
+    for (int x = lane; x < t.cx; x += 32) {
+      const int ix = ix0 + x;
+      uint32_t* d = x_s + (y * t.cx + x) * g.CwA;
+      if (iy >= 0 && iy < g.H && ix >= 0 && ix < g.W) {
+        const int32_t* src =
+            a + ((static_cast<size_t>(n) * g.H + iy) * g.W + ix) * g.CwA;
+        if (vec) {
+          for (int k = 0; k < g.CwA; k += 4) cp_async16(d + k, src + k);
+        } else {
+          for (int k = 0; k < g.CwA; ++k) cp_async4(d + k, src + k);
+        }
+      } else {
+        for (int k = 0; k < g.CwA; ++k) d[k] = 0u;
+      }
+    }
+  }
+}
+
+// The mxu kernel's input halo: x_s[y][x][cw], zero words outside the image,
+// by plain loads and stores.
 __device__ __forceinline__ void stage_input(const int32_t* __restrict__ a,
                                             const Geom& g, const Tile& t,
                                             int n, uint32_t* x_s) {
@@ -158,151 +257,6 @@ __device__ __forceinline__ bool in_map(const Geom& g, const Tile& t, int ay,
 __device__ __forceinline__ bool nb_bit(int y, float c, bool flip) {
   return (static_cast<float>(y) >= c) != flip;
 }
-
-// Stage filter rows o0 .. o0+rows-1 of w (O x L) at word stride ls; rows up
-// to the next multiple of 32 are zero-filled (masked lanes read them).
-__device__ __forceinline__ void stage_filters(const int32_t* __restrict__ w,
-                                              int O, int L, int ls, int o0,
-                                              int rows32, uint32_t* w_s) {
-  for (int i = threadIdx.x; i < rows32 * L; i += THREADS) {
-    const int r = i / L, l = i % L;
-    w_s[r * ls + l] = (o0 + r < O)
-        ? static_cast<uint32_t>(w[static_cast<size_t>(o0 + r) * L + l])
-        : 0u;
-  }
-}
-
-// ---------------------------------------------------------------- vpu ----
-
-template <int PF>
-__global__ void __launch_bounds__(THREADS)
-pair_vpu_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ wa,
-                const float* __restrict__ ca, const uint8_t* __restrict__ fa,
-                const int32_t* __restrict__ wb, const float* __restrict__ cb,
-                const uint8_t* __restrict__ fb, int8_t* __restrict__ out,
-                Geom g) {
-  extern __shared__ uint32_t smem[];
-  const Tile t = make_tile<PF>(g, blockIdx.x);
-  const int n = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  uint32_t* x_s = smem;                              // [rx][cx][CwA]
-  uint32_t* a_s = x_s + t.rx * t.cx * g.CwA;         // [ha][wa][OAw]
-  uint32_t* w_s = a_s + t.ha * t.wa * t.OAw;         // [CHUNK][L | 1]
-  stage_input(a, g, t, n, x_s);
-
-  // conv A over the A-output halo -> eq. 8 -> halo mask -> packed words
-  const int LA = g.fha * g.fwa * g.CwA, lsa = LA | 1;
-  const int PA = t.ha * t.wa;
-  for (int o0 = 0; o0 < g.OA; o0 += CHUNK) {
-    const int rows = min(CHUNK, g.OA - o0);          // a multiple of 32
-    __syncthreads();                                 // w_s free, x_s ready
-    stage_filters(wa, g.OA, LA, lsa, o0, rows, w_s);
-    __syncthreads();
-    const int groups = rows / 32, batches = (PA + PBA - 1) / PBA;
-    for (int it = warp; it < groups * batches; it += WARPS) {
-      const int grp = it % groups, p0 = (it / groups) * PBA;
-      int base[PBA], acc[PBA];
-#pragma unroll
-      for (int j = 0; j < PBA; ++j) {
-        const int p = p0 + j < PA ? p0 + j : 0;
-        base[j] = ((p / t.wa) * t.cx + p % t.wa) * g.CwA;
-        acc[j] = 0;
-      }
-      const uint32_t* wrow = w_s + (grp * 32 + lane) * lsa;
-      for (int dy = 0; dy < g.fha; ++dy)
-        for (int dx = 0; dx < g.fwa; ++dx) {
-          const uint32_t* xpos = x_s + (dy * t.cx + dx) * g.CwA;
-          const uint32_t* wpos = wrow + (dy * g.fwa + dx) * g.CwA;
-          for (int cw = 0; cw < g.CwA; ++cw) {
-            const uint32_t wv = wpos[cw];
-#pragma unroll
-            for (int j = 0; j < PBA; ++j)
-              acc[j] += __popc(~(xpos[base[j] + cw] ^ wv));
-          }
-        }
-      const int o = o0 + grp * 32 + lane;
-      const float c = ca[o];
-      const bool flip = fa[o] != 0;
-#pragma unroll
-      for (int j = 0; j < PBA; ++j) {
-        const int p = p0 + j;                        // uniform in the warp
-        if (p < PA) {
-          const bool bit = in_map(g, t, p / t.wa, p % t.wa) &&
-                           nb_bit(acc[j] - g.npad_a, c, flip);
-          const unsigned word = __ballot_sync(FULL, bit);
-          if (lane == 0) a_s[p * t.OAw + o0 / 32 + grp] = word;
-        }
-      }
-    }
-  }
-
-  // conv B over the tile's (pooled) outputs, reading the bit map in a_s
-  constexpr int QB = PBB / (PF * PF);                // pooled outputs / pass
-  const int LB = g.fhb * g.fwb * t.OAw, lsb = LB | 1;
-  const int Q = g.th * g.tw;
-  for (int o0 = 0; o0 < g.OB; o0 += CHUNK) {
-    const int rows32 = (min(CHUNK, g.OB - o0) + 31) / 32 * 32;
-    __syncthreads();                                 // a_s complete, w_s free
-    stage_filters(wb, g.OB, LB, lsb, o0, rows32, w_s);
-    __syncthreads();
-    const int groups = rows32 / 32, batches = (Q + QB - 1) / QB;
-    for (int it = warp; it < groups * batches; it += WARPS) {
-      const int grp = it % groups, q0 = (it / groups) * QB;
-      int base[PBB], acc[PBB];
-#pragma unroll
-      for (int qi = 0; qi < QB; ++qi) {
-        const int q = q0 + qi < Q ? q0 + qi : 0;
-        const int qy = q / g.tw, qx = q % g.tw;
-#pragma unroll
-        for (int s = 0; s < PF * PF; ++s) {
-          const int by = qy * PF + s / PF, bx = qx * PF + s % PF;
-          base[qi * PF * PF + s] = (by * t.wa + bx) * t.OAw;
-          acc[qi * PF * PF + s] = 0;
-        }
-      }
-      const uint32_t* wrow = w_s + (grp * 32 + lane) * lsb;
-      for (int dy = 0; dy < g.fhb; ++dy)
-        for (int dx = 0; dx < g.fwb; ++dx) {
-          const uint32_t* apos = a_s + (dy * t.wa + dx) * t.OAw;
-          const uint32_t* wpos = wrow + (dy * g.fwb + dx) * t.OAw;
-          for (int cw = 0; cw < t.OAw; ++cw) {
-            const uint32_t wv = wpos[cw];
-#pragma unroll
-            for (int j = 0; j < PBB; ++j)
-              acc[j] += __popc(~(apos[base[j] + cw] ^ wv));
-          }
-        }
-      const int o = o0 + grp * 32 + lane;
-      if (o >= g.OB) continue;
-      const float c = cb[o];
-      const bool flip = fb[o] != 0;
-#pragma unroll
-      for (int qi = 0; qi < QB; ++qi) {
-        const int q = q0 + qi;
-        const int oy = t.oy0 + q / g.tw, ox = t.ox0 + q % g.tw;
-        if (q >= Q || oy >= g.HO || ox >= g.WO) continue;
-        bool any = false, all = true;
-#pragma unroll
-        for (int s = 0; s < PF * PF; ++s) {
-          const bool bit = nb_bit(acc[qi * PF * PF + s] - g.npad_b, c, flip);
-          any |= bit;
-          all &= bit;
-        }
-        out[((static_cast<size_t>(n) * g.HO + oy) * g.WO + ox) * g.OB + o] =
-            static_cast<int8_t>(flip ? all : any);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------- mxu ----
-
-using repro::cluster_arrive;
-using repro::cluster_wait;
-using repro::cp_async4;
-using repro::cp_async_commit;
-using repro::cp_async_wait_all;
-using repro::smem_u32;
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
@@ -346,6 +300,381 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
                   "r"(smem_u32(bar))
                : "memory");
 }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+template <int V>
+__device__ __forceinline__ void load_words(const uint32_t* p,
+                                           uint32_t (&w)[V]) {
+  if constexpr (V == 4) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
+  } else {
+    w[0] = *p;
+  }
+}
+
+// ---------------------------------------------------------------- vpu ----
+
+// Word stride of a staged filter row of L words: V = 4 (16-byte loads, L a
+// multiple of 4), L itself, so a conv's rows arrive by one TMA bulk copy
+// (at L = 72 or 144 the 8 rows a quarter-warp reads share 16-byte bank
+// groups two or four ways, which costs less than staging rows one by one:
+// PERF.md); V = 1, odd, so 32 rows lie in 32 banks.
+__host__ __device__ constexpr int vpu_stride(int L, int V) {
+  return V == 4 ? L : (L | 1);
+}
+
+__host__ __device__ constexpr int round_vp(int x) {
+  return (x + VP - 1) / VP * VP;
+}
+
+// Start copying filter rows r0 .. r0+rows-1 of w (O x L words) into w_s at
+// word stride ls, by 16-byte cp.async where the rows allow it (warp = row,
+// lane = unit of the row).
+__device__ __forceinline__ void stage_vpu_rows(const int32_t* __restrict__ w,
+                                               int L, int r0, int rows,
+                                               int ls, uint32_t* w_s) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool vec = repro::rows_vec(w, L, 0, L, ls);
+  for (int r = warp; r < rows; r += WARPS) {
+    const int32_t* src = w + static_cast<size_t>(r0 + r) * L;
+    uint32_t* dst = w_s + r * ls;
+    if (vec) {
+      for (int k = 4 * lane; k < L; k += 128) cp_async16(dst + k, src + k);
+    } else {
+      for (int k = lane; k < L; k += 32) cp_async4(dst + k, src + k);
+    }
+  }
+}
+
+// dis[j] += the sum over vector units u0 .. u1-1 (V words each) of
+// popc(x XOR w): filter row f, its words in order, against the patch of
+// position j, whose word 0 is src[base[j]]. A tap row of the filter is
+// nrow units that lie contiguous in src; the next tap row starts src_row
+// words further on. NROW > 0 fixes nrow at compile time. Every V-word load
+// of f serves VP positions. With V = 4 the four XOR words of a position
+// pass through two full adders (carry-save, a LOP3 each for sum and
+// carry) into a running word `ones`, so popc(ones) + 2 * (popc of the
+// carries) keeps the count: 2 popcounts a unit instead of 4, for 4 more
+// LOP3s (the popc pipe runs 16 lanes a clock per SM, LOP3 64).
+template <int V, int NROW>
+__device__ __forceinline__ void xor_popc(const uint32_t* f,
+                                         const uint32_t* src,
+                                         const int (&base)[VP], int src_row,
+                                         int nrow_rt, int u0, int u1,
+                                         int (&dis)[VP]) {
+  const int nrow = NROW > 0 ? NROW : nrow_rt;
+  int dy = 0, r = u0;
+  while (r >= nrow) {                // a K slice starts in tap row dy
+    r -= nrow;
+    ++dy;
+  }
+  int off = dy * src_row + r * V;
+  const int skip = src_row - nrow * V;
+  uint32_t ones[VP];
+  int twos[VP];
+#pragma unroll
+  for (int j = 0; j < VP; ++j) {
+    ones[j] = 0u;
+    twos[j] = 0;
+  }
+  for (int u = u0; u < u1; ++u) {
+    uint32_t w[V];
+    load_words<V>(f + u * V, w);
+#pragma unroll
+    for (int j = 0; j < VP; ++j) {
+      uint32_t x[V];
+      load_words<V>(src + base[j] + off, x);
+      if constexpr (V == 4) {
+        const uint32_t d0 = x[0] ^ w[0], d1 = x[1] ^ w[1];
+        const uint32_t d2 = x[2] ^ w[2], d3 = x[3] ^ w[3];
+        const uint32_t o = ones[j];
+        const uint32_t c1 = (o & d0) | (o & d1) | (d0 & d1);
+        const uint32_t s1 = o ^ d0 ^ d1;
+        const uint32_t c2 = (s1 & d2) | (s1 & d3) | (d2 & d3);
+        ones[j] = s1 ^ d2 ^ d3;
+        twos[j] += __popc(c1) + __popc(c2);
+      } else {
+        dis[j] += __popc(x[0] ^ w[0]);
+      }
+    }
+    off += V;
+    if (++r == nrow) {                               // next tap row
+      r = 0;
+      off += skip;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < VP; ++j) dis[j] += __popc(ones[j]) + 2 * twos[j];
+}
+
+// One pass's filter rows x positions over the block's warps. A warp unit
+// is 32 filter rows (lane = row; rows 32 g + lane of f_s at stride ls) by
+// VP positions (base(p): the patch start of position p), positions in nb
+// blocks of VP. With at most WARPS / 2 units, K (nv units of V words) is
+// split into ks (a power of 2) contiguous slices whose partial sums meet
+// in red (shared-memory atomics); a split of 6 units over 8 warps measured
+// slower than none. Item i = (slice, position block, row group), row group
+// fastest, goes to warp i mod WARPS. epi(g, pb, dis) receives each unit's
+// whole XOR-popcount sums, in all 32 lanes of one warp.
+template <int V, int NROW, class Base, class Epi>
+__device__ __forceinline__ void run_units(int groups, int nb,
+                                          const uint32_t* f_s, int ls,
+                                          const uint32_t* src, int src_row,
+                                          int nrow, int nv, Base base,
+                                          Epi epi, int* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int units = groups * nb;
+  int ks = 1, lks = 0;
+  while (2 * ks * units <= WARPS && 2 * ks <= nv) {
+    ks *= 2;
+    ++lks;
+  }
+  int grp = 0, pb = 0, sl = 0;
+  for (int i = 0; i < units * ks; ++i) {
+    if (i % WARPS == warp) {
+      int b[VP], dis[VP];
+#pragma unroll
+      for (int j = 0; j < VP; ++j) {
+        b[j] = base(pb * VP + j);
+        dis[j] = 0;
+      }
+      xor_popc<V, NROW>(f_s + (grp * 32 + lane) * ls, src, b, src_row, nrow,
+                        (nv * sl) >> lks, (nv * (sl + 1)) >> lks, dis);
+      if (ks == 1) {
+        epi(grp, pb, dis);
+      } else {
+#pragma unroll
+        for (int j = 0; j < VP; ++j)
+          atomicAdd(&red[((pb * groups + grp) * VP + j) * 32 + lane], dis[j]);
+      }
+    }
+    if (++grp == groups) {
+      grp = 0;
+      if (++pb == nb) {
+        pb = 0;
+        ++sl;
+      }
+    }
+  }
+  if (ks > 1) {
+    __syncthreads();
+    grp = pb = 0;
+    for (int i = 0; i < units; ++i) {
+      if (i % WARPS == warp) {
+        int dis[VP];
+#pragma unroll
+        for (int j = 0; j < VP; ++j) {
+          int* r = &red[((pb * groups + grp) * VP + j) * 32 + lane];
+          dis[j] = *r;
+          *r = 0;                                    // clean for the next pass
+        }
+        epi(grp, pb, dis);
+      }
+      if (++grp == groups) {
+        grp = 0;
+        ++pb;
+      }
+    }
+  }
+}
+
+// Cluster rank r of csize blocks per (image, tile): conv A for OA channels
+// [r OA/csize, (r+1) OA/csize) over the whole A halo, each channel word of
+// the bit map written into the map of every rank (DSMEM); after a cluster
+// barrier, conv B for OB channels [ceil(r OB/csize), ceil((r+1) OB/csize))
+// from its own map. The grid is (tile columns x csize, tile rows, images);
+// the cluster split comes from the host (g.oa_per, g.ob_split), so no
+// block divides. mr: filter rows staged per pass. F, CW, OW > 0 fix the
+// filters (both F x F), CwA and OA/32 at compile time (the Table 2 pairs);
+// 0 reads them from g. V: words per shared-memory load (4 where CwA and
+// OA/32 are multiples of 4). 64 registers, so 4 blocks fit an SM.
+template <int PF, int F, int CW, int OW, int V>
+__global__ void __launch_bounds__(THREADS, 4)
+pair_vpu_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ wa,
+                const float* __restrict__ ca, const uint8_t* __restrict__ fa,
+                const int32_t* __restrict__ wb, const float* __restrict__ cb,
+                const uint8_t* __restrict__ fb, int8_t* __restrict__ out,
+                Geom g, int mr) {
+  extern __shared__ __align__(16) uint32_t smem_vpu[];
+  __shared__ VpuStatic st;
+  // barrier phase 0, split: this block has started (no memory to order)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  VPU_PHASE(0);                          // started
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  unsigned tx;                           // the cluster's tile column
+  asm("mov.u32 %0, %%clusterid.x;" : "=r"(tx));
+  const Tile t = make_tile<PF>(g, blockIdx.y, static_cast<int>(tx));
+  const int n = blockIdx.z, tid = threadIdx.x, warp = tid / 32;
+  const int lane = tid % 32, csize = g.csize;
+  const int fha = F > 0 ? F : g.fha, fwa = F > 0 ? F : g.fwa;
+  const int fhb = F > 0 ? F : g.fhb, fwb = F > 0 ? F : g.fwb;
+  const int cwa = CW > 0 ? CW : g.CwA, oaw = OW > 0 ? OW : t.OAw;
+  const int oa_per = g.oa_per, oa0 = rank * oa_per;
+  int ob0 = 0, ob1 = 0;
+#pragma unroll
+  for (int r = 0; r < repro::MAX_CLUSTER; ++r) {
+    if (r == rank) {
+      ob0 = g.ob_split[r];
+      ob1 = g.ob_split[r + 1];
+    }
+  }
+  const int LA = fha * fwa * cwa, LB = fhb * fwb * oaw;
+  const int lsa = vpu_stride(LA, V), lsb = vpu_stride(LB, V);
+  constexpr int PP = PF * PF, QB = VP / PP;
+  const int PA = t.ha * t.wa, Q = g.th * g.tw, RB = Q * PP;
+  uint32_t* x_s = smem_vpu;                           // [rx][cx][CwA]
+  uint32_t* a_s = x_s + t.rx * t.cx * cwa;            // [ha][wa][OAw]
+  uint32_t* fa_s = a_s + PA * oaw;                    // [min(mr, OA/C)][lsa]
+  uint32_t* fb_s = fa_s + min(mr, oa_per) * lsa;      // [mr][lsb]
+  int* pos_a = reinterpret_cast<int*>(fb_s + mr * lsb);   // x_s offset << 1
+                                                          // | in the map
+  int* pos_b = pos_a + round_vp(PA);                  // a_s offset
+  int* out_q = pos_b + round_vp(RB);                  // (oy WO + ox) OB, or -1
+
+  // conv A's first filter rows on one mbarrier (or with the input halo in
+  // one cp.async group), conv B's first rows on a second (group), which
+  // land while conv A runs. Where the rows are 16-byte aligned and whole
+  // 16-byte units, the TMA unit copies each conv's rows in one bulk copy;
+  // else cp.async. The halo comes by cp.async (one TMA copy a halo row
+  // costs more).
+  const int ra = min(mr, oa_per), rb = max(0, min(mr, ob1 - ob0));
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool bulk = V == 4 && aligned(wa) && aligned(wb);
+  if (bulk && tid == 0) {
+    mbar_init(&st.bar[0]);
+    mbar_init(&st.bar[1]);
+    mbar_expect_tx(&st.bar[0], ra * LA * 4);
+    mbar_expect_tx(&st.bar[1], rb * LB * 4);
+    bulk_copy(fa_s, wa + static_cast<size_t>(oa0) * LA, ra * LA * 4,
+              &st.bar[0]);
+    if (rb > 0)
+      bulk_copy(fb_s, wb + static_cast<size_t>(ob0) * LB, rb * LB * 4,
+                &st.bar[1]);
+  }
+  if (!bulk) stage_vpu_rows(wa, LA, oa0, ra, lsa, fa_s);
+  stage_halo(a, g, t, n, x_s);
+  cp_async_commit();
+  if (!bulk) stage_vpu_rows(wb, LB, ob0, rb, lsb, fb_s);
+  cp_async_commit();
+  VPU_PHASE(1);                          // copies issued
+  // position tables (warp = row, lane = column), so that nothing divides
+  for (int y = warp; y < t.ha; y += WARPS)
+    for (int x = lane; x < t.wa; x += 32)
+      pos_a[y * t.wa + x] = ((y * t.cx + x) * cwa) << 1 | in_map(g, t, y, x);
+  for (int qy = warp; qy < g.th; qy += WARPS) {
+    for (int i = lane; i < g.tw * PP; i += 32) {
+      const int qx = i / PP, sl = i % PP;              // PP: 4 or 1
+      pos_b[(qy * g.tw + qx) * PP + sl] =
+          ((qy * PF + sl / PF) * t.wa + qx * PF + sl % PF) * oaw;
+    }
+    for (int qx = lane; qx < g.tw; qx += 32) {
+      const int oy = t.oy0 + qy, ox = t.ox0 + qx;
+      out_q[qy * g.tw + qx] =
+          oy < g.HO && ox < g.WO ? (oy * g.WO + ox) * g.OB : -1;
+    }
+  }
+  if (tid < round_vp(PA) - PA) pos_a[PA + tid] = 0;
+  if (tid < round_vp(RB) - RB) pos_b[RB + tid] = 0;
+  if (tid < round_vp(Q) - Q) out_q[Q + tid] = -1;
+  for (int i = tid; i < WARPS / 2 * 32 * VP; i += THREADS) st.red[i] = 0;
+  VPU_PHASE(2);                          // tables built
+  cp_async_wait_group<1>();
+  __syncthreads();
+  if (bulk) mbar_wait(&st.bar[0], 0);    // acquires what the TMA wrote
+  cluster_wait();                        // every peer's map may be written
+  VPU_PHASE(3);                          // conv A's data landed
+
+  // conv A: rows = this rank's OA channels, positions = the A halo; eq. 8
+  // and the halo mask per bit, one __ballot_sync per channel word
+  const int kA = 32 * LA - g.npad_a;                  // agree = kA - dis
+  for (int r0 = 0; r0 < oa_per; r0 += mr) {
+    const int rows = min(mr, oa_per - r0);
+    if (r0 > 0) {
+      __syncthreads();                               // fa_s free
+      stage_vpu_rows(wa, LA, oa0 + r0, rows, lsa, fa_s);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    const int ch0 = oa0 + r0;
+    auto base_a = [&](int p) { return pos_a[p] >> 1; };
+    auto epi_a = [&](int grp, int pb, const int (&dis)[VP]) {
+      const int o = ch0 + 32 * grp + lane;
+      const float c = ca[o];
+      const bool flip = fa[o] != 0;
+      uint32_t* word = a_s + (o >> 5);
+#pragma unroll
+      for (int j = 0; j < VP; ++j) {
+        const int p = pb * VP + j;                   // uniform in the warp
+        if (p < PA) {
+          const bool bit = (pos_a[p] & 1) && nb_bit(kA - dis[j], c, flip);
+          const unsigned bits = __ballot_sync(FULL, bit);
+          if (lane < csize)
+            *cluster.map_shared_rank(word + p * oaw, lane) = bits;
+        }
+      }
+    };
+    run_units<V, (F > 0 && CW > 0 ? F * CW / V : 0)>(
+        rows / 32, round_vp(PA) / VP, fa_s, lsa, x_s, t.cx * cwa,
+        fwa * cwa / V, LA / V, base_a, epi_a, st.red);
+  }
+  VPU_PHASE(4);                          // conv A done
+  if (bulk) mbar_wait(&st.bar[1], 0);    // conv B's first rows
+  cp_async_wait_all();
+  cluster.sync();                        // phase 1: every map is complete
+  VPU_PHASE(5);                          // the bit map shared
+
+  // conv B: rows = this rank's OB channels, positions = (pooled output q,
+  // window slot s), VP of them per unit: one window (PF = 2) or VP outputs
+  const int kB = 32 * LB - g.npad_b;
+  int8_t* out_n = out + static_cast<size_t>(n) * g.HO * g.WO * g.OB;
+  for (int r0 = ob0; r0 < ob1; r0 += mr) {
+    const int rows = min(mr, ob1 - r0);
+    if (r0 > ob0) {
+      __syncthreads();                               // fb_s free
+      stage_vpu_rows(wb, LB, r0, rows, lsb, fb_s);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+    }
+    auto base_b = [&](int rr) { return pos_b[rr]; };
+    auto epi_b = [&](int grp, int qb, const int (&dis)[VP]) {
+      const int o = r0 + 32 * grp + lane;
+      const bool live = o < ob1;
+      const float c = live ? cb[o] : 0.f;
+      const bool flip = live && fb[o] != 0;
+#pragma unroll
+      for (int qi = 0; qi < QB; ++qi) {
+        // 2x2 pool: any (max) where flip is 0, all (min) where it is 1
+        bool any = false, all = true;
+#pragma unroll
+        for (int s = 0; s < PP; ++s) {
+          const bool bit = nb_bit(kB - dis[qi * PP + s], c, flip);
+          any |= bit;
+          all &= bit;
+        }
+        const int oq = out_q[qb * QB + qi];
+        if (live && oq >= 0)
+          out_n[oq + o] = static_cast<int8_t>(flip ? all : any);
+      }
+    };
+    run_units<V, (F > 0 && OW > 0 ? F * OW / V : 0)>(
+        (rows + 31) / 32, round_vp(RB) / VP, fb_s, lsb, a_s, t.wa * oaw,
+        fwb * oaw / V, LB / V, base_b, epi_b, st.red);
+  }
+  VPU_PHASE(6);                          // conv B done
+}
+
+// ---------------------------------------------------------------- mxu ----
+
 
 // Bits 0, 8, 16 and 24 of x as four int8 +1 / -1 (bit 1 = +1) in bytes
 // 0..3: one AND and one multiply-add, -(254 m) - 1 = ~(m * 0xFE).
@@ -393,17 +722,6 @@ __device__ __forceinline__ void stage_rows(const int32_t* __restrict__ w,
   for (int i = rows * L + threadIdx.x; i < (rows + 15) / 16 * 16 * L;
        i += THREADS)
     w_s[i] = 0u;
-}
-
-template <int V>
-__device__ __forceinline__ void load_words(const uint32_t* p,
-                                           uint32_t (&w)[V]) {
-  if constexpr (V == 4) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
-    w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
-  } else {
-    w[0] = *p;
-  }
 }
 
 // NT m16 x n8 tiles side by side over k-units u0 .. u1-1 of V words each
@@ -541,7 +859,8 @@ pair_mxu_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ wa,
   uint64_t* bar = st.bar;                            // filters of A, of B
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const Tile t = make_tile<PF>(g, blockIdx.x / csize);
+  const int tile = blockIdx.x / csize;
+  const Tile t = make_tile<PF>(g, tile / g.tiles_w, tile % g.tiles_w);
   const int n = blockIdx.y;
   const int lane = threadIdx.x % 32, gq = lane / 4, tq = lane % 4;
   const int oa_per = g.OA / csize, oa0 = rank * oa_per;
@@ -712,28 +1031,22 @@ size_t map_words(const Geom& g, int pf) {
   return (ha + g.fha - 1) * (wa + g.fwa - 1) * g.CwA + ha * wa * (g.OA / 32);
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, size_t smem, const Geom& g, int N, const void* a,
-           const void* wa, const void* ca, const void* fa, const void* wb,
-           const void* cb, const void* fb, void* out, void* stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int tiles_h = (g.HO + g.th - 1) / g.th;
-  const dim3 grid(tiles_h * g.tiles_w, N);
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(a), static_cast<const int32_t*>(wa),
-      static_cast<const float*>(ca), static_cast<const uint8_t*>(fa),
-      static_cast<const int32_t*>(wb), static_cast<const float*>(cb),
-      static_cast<const uint8_t*>(fb), static_cast<int8_t*>(out), g);
-  return static_cast<int>(cudaGetLastError());
+// Shared-memory words of a vpu block: halo and map, conv A's first
+// min(mr, OA/C) filter rows at stride vpu_stride(LA), mr conv B rows at
+// vpu_stride(LB), and the position tables; mirrored by
+// src/repro_torch/kernels/xnor_conv_fused.py::halo_scratch.
+size_t vpu_words(const Geom& g, int pf, int mr, int V) {
+  const int LA = g.fha * g.fwa * g.CwA, LB = g.fhb * g.fwb * (g.OA / 32);
+  const int ra = mr < g.oa_per ? mr : g.oa_per;
+  const int pa = (pf * g.th + g.fhb - 1) * (pf * g.tw + g.fwb - 1);
+  const int q = g.th * g.tw;
+  return map_words(g, pf) + static_cast<size_t>(ra) * vpu_stride(LA, V) +
+         static_cast<size_t>(mr) * vpu_stride(LB, V) + round_vp(pa) +
+         round_vp(q * pf * pf) + round_vp(q);
 }
 
-// Largest divisor of OA/32 that is at most MAX_CLUSTER: the mxu cluster
-// size (kernels/xnor_conv_fused.py::mxu_split mirrors it).
+// Largest divisor of OA/32 that is at most MAX_CLUSTER: the cluster size
+// of both variants (kernels/xnor_conv_fused.py::mxu_split mirrors it).
 int cluster_size(int OA) {
   int c = repro::MAX_CLUSTER;
   while ((OA / 32) % c) --c;
@@ -748,7 +1061,12 @@ Geom make_geom(int H, int W, int CwA, int OA, int OB, int fha, int fwa,
   g.fha = fha; g.fwa = fwa; g.fhb = fhb; g.fwb = fwb;
   g.HO = H / pf; g.WO = W / pf; g.th = th; g.tw = tw;
   g.tiles_w = (g.WO + tw - 1) / tw;
+  g.tiles_h = (g.HO + th - 1) / th;
   g.npad_a = npad_a; g.npad_b = npad_b;
+  g.csize = cluster_size(OA);
+  g.oa_per = OA / g.csize;
+  for (int r = 0; r <= repro::MAX_CLUSTER; ++r)
+    g.ob_split[r] = r <= g.csize ? (r * OB + g.csize - 1) / g.csize : OB;
   return g;
 }
 
@@ -766,15 +1084,28 @@ int xnor_conv2d_pair_vpu(const void* a, const void* wa, const void* ca,
                          int npad_b, void* stream) {
   const Geom g = make_geom(H, W, CwA, OA, OB, fha, fwa, fhb, fwb, pf, th, tw,
                            npad_a, npad_b);
-  const int LA = fha * fwa * CwA, LB = fhb * fwb * (OA / 32);
-  const size_t smem =
-      (map_words(g, pf) + static_cast<size_t>(CHUNK) * ((LA > LB ? LA : LB) | 1)) *
-      sizeof(uint32_t);
-  return pf == 2
-      ? launch(pair_vpu_kernel<2>, smem, g, N, a, wa, ca, fa, wb, cb, fb, out,
-               stream)
-      : launch(pair_vpu_kernel<1>, smem, g, N, a, wa, ca, fa, wb, cb, fb, out,
-               stream);
+  const int oaw = OA / 32;
+  const int V = CwA % 4 == 0 && oaw % 4 == 0 ? 4 : 1;
+  // filter rows per pass: VR, halved (to 32 at least) until the block fits
+  int mr = VR;
+  size_t smem = 0;
+  for (;; mr /= 2) {
+    smem = vpu_words(g, pf, mr, V) * sizeof(uint32_t);
+    if (mr == 32 || smem + VPU_STATIC <= repro::SMEM_LIMIT) break;
+  }
+  // the Table 2 pairs CONV-3/4 and CONV-5/6 at compile time, the rest
+  // through the same kernel with its geometry read at run time
+  const bool f3 = pf == 2 && fha == 3 && fwa == 3 && fhb == 3 && fwb == 3;
+  const auto kernel =
+      f3 && CwA == 4 && oaw == 8     ? pair_vpu_kernel<2, 3, 4, 8, 4>
+      : f3 && CwA == 8 && oaw == 16  ? pair_vpu_kernel<2, 3, 8, 16, 4>
+      : pf == 2 && V == 4            ? pair_vpu_kernel<2, 0, 0, 0, 4>
+      : pf == 2                      ? pair_vpu_kernel<2, 0, 0, 0, 1>
+      : V == 4                       ? pair_vpu_kernel<1, 0, 0, 0, 4>
+                                     : pair_vpu_kernel<1, 0, 0, 0, 1>;
+  const dim3 grid(g.tiles_w * g.csize, g.tiles_h, N);
+  return repro::launch_cluster(kernel, grid, dim3(g.csize), THREADS, smem,
+                               stream, a, wa, ca, fa, wb, cb, fb, out, g, mr);
 }
 
 int xnor_conv2d_pair_mxu(const void* a, const void* wa, const void* ca,

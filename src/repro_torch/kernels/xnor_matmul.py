@@ -11,7 +11,9 @@
   launcher's choice.
 * ``binary_weight_matmul`` (K6) replaces ``repro/kernels/xnor_matmul.py::
   binary_weight_matmul``: real activations × packed ±1 weights on the
-  CUDA cores, float32 sums.
+  CUDA cores, float32 sums, as a decode-shaped GEMV (one warp per 4
+  output columns and a row tile that holds M, K split over the lanes,
+  no shared memory, no block barrier); ``bw_plan`` mirrors its grid.
 
 K1 and K2 take (M, Kw) and (N, Kw) int32 CUDA tensors and return (M, N)
 int32 agree-counts, or int8 {0,1} bits when thresholds are given (fused
@@ -120,6 +122,46 @@ def mxu_plan(m: int, n: int, kw: int) -> MxuPlan:
     return MxuPlan(m, n, kw, bn, bm, cs, pass_words, smem)
 
 
+# Mirrors of csrc/binary_weight_matmul.cu (K6): a block is one warp of
+# BW_NW output columns; a lane takes BW_KV consecutive K elements of each
+# 128-element step.
+BW_NW = 4
+BW_KV = 4
+
+
+@dataclass(frozen=True)
+class BwPlan:
+    """K6's launch for (M, N, Kw): blocks of one warp over ``BW_NW``
+    output columns and ``mt`` rows (1, 2 or 4: the least that holds M,
+    else 4 with ceil(M / 4) row tiles)."""
+    m: int
+    n: int
+    kw: int
+    mt: int
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return -(-self.n // BW_NW), -(-self.m // self.mt)
+
+    def outputs(self, bx: int, by: int) -> list[tuple[int, int]]:
+        """The (m, n) outputs block (bx, by) stores."""
+        return [(by * self.mt + r, bx * BW_NW + c) for r in range(self.mt)
+                for c in range(BW_NW)
+                if by * self.mt + r < self.m and bx * BW_NW + c < self.n]
+
+    def lane_words(self, lane: int) -> list[tuple[int, int]]:
+        """(word, first bit) of every BW_KV-element share of K that
+        ``lane`` reads, in the order it adds them: word k0 + lane / 8 of
+        each 4-word step, bits 4 (lane % 8) onward."""
+        return [(k0 + lane // 8, BW_KV * (lane % 8))
+                for k0 in range(0, self.kw, 4) if k0 + lane // 8 < self.kw]
+
+
+def bw_plan(m: int, n: int, kw: int) -> BwPlan:
+    """The launcher's plan (``csrc/binary_weight_matmul.cu::launch_bw``)."""
+    return BwPlan(m, n, kw, 1 if m <= 1 else 2 if m == 2 else 4)
+
+
 def check_thresholds(thr_c, thr_flip, n: int, device) -> None:
     """Thresholds for the fused epilogue: float32 c and bool flip, (n,)
     each, contiguous, on ``device`` — or both None."""
@@ -195,7 +237,9 @@ def binary_weight_matmul(a: torch.Tensor, w_words: torch.Tensor, *,
     """K6: real (M, Kw·32) activations × packed (N, Kw) ±1 weights → (M,
     N) in a's dtype. Each activation is rounded to bf16, the ±1 products
     are summed in float32, then multiplied by ``scale`` (N,) float32 when
-    given. Activations past the true K must be zero."""
+    given. Activations past the true K must be zero. The kernel reads
+    ``a`` in 16-byte (float32) or 8-byte (bf16) units, so an ``a`` whose
+    storage does not start on 16 bytes is copied first."""
     if not a.is_cuda:
         raise ValueError("a must be a CUDA tensor (the plain version for "
                          "CPU tensors is kernels/ref.py)")
@@ -216,6 +260,8 @@ def binary_weight_matmul(a: torch.Tensor, w_words: torch.Tensor, *,
         raise ValueError(f"scale must be a contiguous ({n},) float32 tensor "
                          f"on {a.device}, got {tuple(scale.shape)} "
                          f"{scale.dtype} on {scale.device}")
+    if a.data_ptr() % 16:
+        a = a.clone()
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream

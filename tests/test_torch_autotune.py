@@ -95,7 +95,7 @@ def test_candidate_space_obeys_legality(packed):
     assert len(space["pairs"][2]["tiles"]) == 16       # 8x8 pooled output
     assert len(space["pairs"][4]["tiles"]) == 9        # 4x4 pooled output
     # a geometry whose largest tiles overflow shared memory drops them
-    geom = dict(pf=2, fha=3, fwa=3, cwa=32, fhb=3, fwb=3, oa=1024)
+    geom = dict(pf=2, fha=3, fwa=3, cwa=32, fhb=3, fwb=3, oa=2048)
     big = at.tile_candidates(8, 8, **geom)
     assert (8, 8) not in big and (4, 8) in big
 

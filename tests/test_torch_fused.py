@@ -246,18 +246,21 @@ def test_default_tiles_legal_and_differ_from_reference(nets):
 
 
 def test_pick_tiles_shrinks_to_fit_shared_memory():
-    geom = dict(pf=2, fha=3, fwa=3, cwa=32, fhb=3, fwb=3, oa=1024)
+    geom = dict(pf=2, fha=3, fwa=3, cwa=32, fhb=3, fwb=3, oa=2048)
     assert not kfused.tile_fits(8, 8, **geom)
     assert kfused.pick_tiles(64, 64, **geom) == (4, 8)
-    # (4, 8): input halo 12 x 20 x 32 words, A bit map 10 x 18 x 32 words
-    # and the vpu's 128 filter rows at a stride of 3*3*32 | 1 words
+    # (4, 8): input halo 12 x 20 x 32 words, A bit map 10 x 18 x 64 words;
+    # vpu: 32 rows of each conv (64 overflow the block) of 3*3*32 and
+    # 3*3*64 words as they lie, the position tables (180 A-halo positions,
+    # 128 conv B positions, 32 outputs), the static split-K sums and
+    # mbarriers
     assert kfused.halo_scratch(4, 8, variant="vpu", **geom) == \
-        4 * (12 * 20 * 32 + 10 * 18 * 32 + 128 * 289)
-    # mxu: the same halo and map, then 64 rows of 3*3*32 = 288 words of
-    # each conv's filters (of conv A's 1024 / 8 = 128 per rank), then the
-    # static split-K tiles and mbarriers
+        4 * (12 * 20 * 32 + 10 * 18 * 64 + 32 * 288 + 32 * 576
+             + 180 + 128 + 32) + kfused.VPU_STATIC_BYTES
+    # mxu: the same halo and map, then 32 rows of 288 and 576 words (64
+    # overflow), then the static split-K tiles and mbarriers
     assert kfused.halo_scratch(4, 8, variant="mxu", **geom) == \
-        4 * (12 * 20 * 32 + 10 * 18 * 32 + 64 * 288 + 64 * 288) \
+        4 * (12 * 20 * 32 + 10 * 18 * 64 + 32 * 288 + 32 * 576) \
         + kfused.MXU_STATIC_BYTES
     with pytest.raises(ValueError, match="variant"):
         kfused.halo_scratch(1, 1, variant="xla", **geom)
