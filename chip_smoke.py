@@ -114,14 +114,21 @@ N_REQUESTS = 16
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate
-# and dense int8 tensor-core rate. __popc issue rate per SM per clock for
-# compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
-# instruction throughput); each popc covers 32 bit-MACs.
+# and dense int8 tensor-core rate. Integer issue rates per SM per clock
+# for compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput): population count 16, 32-bit bitwise operations
+# and adds 64.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12          # CUDA cores, no tensor cores
 POPC_PER_CLK_PER_SM = 16
+ALU_PER_CLK_PER_SM = 64
+# What the carry-save core of K1, K3 and K5 vpu (csrc/bits.cuh::csa_unit)
+# issues per 16-byte unit, 4 words = 128 bit-MACs of one filter row
+# against one position: 4 XORs and two full adders of 2 LOP3s each, 2
+# popcounts, 1 IADD3 adding both to the running sum.
+CSA_UNIT = {"bits": 128, "lop3": 8, "popc": 2, "iadd3": 1}
 
 SOURCES = {
     "xnor_matmul_vpu": ("src/repro_torch/kernels/csrc/xnor_matmul.cu",
@@ -157,6 +164,12 @@ PAIR_SHAPES = [(16, 128, 256, 256), (8, 256, 512, 512)]
 # split over a cluster that does not divide Kw = 259 words
 MM_EXTRAS = [(5, 1000, 1170, True), (37, 77, 33, False), (1, 1, 1, False),
              (9, 17, 257, True), (N_SLOTS, 64, 259 * 32 - 5, True)]
+# ... and K1's regimes (kernels/xnor_matmul.py::vpu_plan): M = 16, the
+# largest the GEMV takes (4 row tiles), and M = 17 and 64, tiled: 16-byte
+# units, ragged N, K in 3 passes of at most 256 words; 4-byte units
+# (Kw = 259) in 2
+MM_EXTRAS += [(16, 1024, 8192, True), (17, 1024, 1024, True),
+              (64, 300, 600 * 32, False), (17, 65, 259 * 32 - 5, True)]
 # K3/K4 extras (n, h, w, c, o, f, stride, pad, thresholds): strided and
 # ragged, Cw = 1 (L = 9), O = 16 and 17, N = 1, a 5x5 at stride 2, and
 # CONV-6 at batch 1
@@ -167,6 +180,13 @@ CONV_EXTRAS = [(2, 9, 9, 64, 40, 3, 2, 1, True),
                (1, 9, 10, 64, 17, 3, 1, 1, False),
                (1, 13, 11, 96, 48, 5, 2, 2, True),
                (1, 8, 8, 512, 512, 3, 1, 1, True)]
+# ... and K3's other instantiations (kernels/xnor_conv.py::vpu_plan): the
+# generic 16-byte kernel at stride 2 with ragged O and at 5x5 (L = 200,
+# rows one TMA copy each), and a Table 2 layout at one tile row, where L is
+# split over the block's warps
+CONV_EXTRAS += [(2, 9, 9, 128, 40, 3, 2, 1, True),
+                (1, 7, 9, 256, 24, 5, 1, 2, True),
+                (1, 6, 6, 128, 32, 3, 1, 1, False)]
 # K5 extras (n, h, w, c, oa, ob, fa, fb, pool): ragged tile grids, 5x5
 # filters, ragged OB; and mxu clusters of C < 8 (OA = 96: C = 3; OA = 64:
 # C = 2) with uneven or ragged OB shares (40 over 3: 14/13/13; over 2:
@@ -205,6 +225,10 @@ FLASH_CASES = [(1, 32, 8, 128, s, True) for s in (128, 1000, FLASH_PATH_S)]
 FLASH_CASES += [(2, 4, 2, 64, 256, c) for c in (True, False)]
 FLASH_CASES += [(1, 2, 1, 64, 200, c) for c in (False, True)]
 FLASH_CASES += [(1, 4, 2, 96, 300, True)]
+# the shape K7 simt runs on the main path: the two-layer float32 cut's
+# prefill, card vs CPU (DENSE_CPU_TOKENS), timed for the kernels line
+FLASH_SIMT_PATH = (2, 32, 8, 128, 256, True)
+FLASH_CASES += [FLASH_SIMT_PATH]
 # the reference's prefill_32k length, one sequence: K7 tc vs SDPA
 FLASH_LONG = (1, 32, 8, 128, 32768, True)
 FLASH_NAMES = {"tc": "flash_attention_tc", "simt": "flash_attention"}
@@ -259,21 +283,30 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 
 class Bound:
     """Least time for a call: bytes over the HBM rate vs. MACs over the
-    compute rate for their type (popc issue for vpu bit-MACs, int8 MMA for
-    mxu, the bf16 tensor-core rate for K6's bf16 x ±1 products)."""
+    compute rate for their type (vpu bit-MACs at the issue rate of the
+    carry-save core's instruction mix, int8 MMA for mxu, the bf16
+    tensor-core rate for K6's bf16 x ±1 products)."""
 
     def __init__(self):
         props = torch.cuda.get_device_properties(0)
         clock_mhz = float(smi("clocks.max.sm").split()[0])
         self.sms = props.multi_processor_count
+        u = CSA_UNIT
+        # SM clocks per unit: the busier of the popc pipe and the ALU pipe
+        unit_clk = max(u["popc"] / POPC_PER_CLK_PER_SM,
+                       (u["lop3"] + u["iadd3"]) / ALU_PER_CLK_PER_SM)
         self.bitmacs_per_s = {
-            "vpu": self.sms * POPC_PER_CLK_PER_SM * clock_mhz * 1e6 * 32,
+            "vpu": self.sms * clock_mhz * 1e6 * u["bits"] / unit_clk,
             "mxu": INT8_OPS_PER_S / 2,
             "bf16": BF16_FLOPS_PER_S / 2,
         }
         print(f"bound model: {self.sms} SMs at {clock_mhz:.0f} MHz max SM "
-              f"clock -> popc {self.bitmacs_per_s['vpu']:.4g} bit-MAC/s; "
-              f"int8 MMA {self.bitmacs_per_s['mxu']:.4g} MAC/s; HBM "
+              f"clock; vpu: per 16-byte unit ({u['bits']} bit-MACs) "
+              f"{u['lop3']} LOP3 + {u['iadd3']} IADD3 at "
+              f"{ALU_PER_CLK_PER_SM} and {u['popc']} POPC at "
+              f"{POPC_PER_CLK_PER_SM} a clock per SM -> {unit_clk:.4g} "
+              f"clocks, {self.bitmacs_per_s['vpu']:.4g} bit-MAC/s; int8 "
+              f"MMA {self.bitmacs_per_s['mxu']:.4g} MAC/s; HBM "
               f"{HBM_BYTES_PER_S:.3g} B/s")
 
     def __call__(self, variant: str, nbytes: int, bitmacs: int):
@@ -371,6 +404,16 @@ def record(stats, name, got, want, what):
     check(err == 0, f"{name} {what}: max |kernel - plain| = {err}")
 
 
+def shifted(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in storage that starts 4 bytes past a 16-byte
+    boundary: K1's and K3's wrappers copy such an operand first."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    off = (-buf.data_ptr() // t.element_size()) % 4 + 1
+    out = buf[off:off + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def kernel_phase(bound: Bound) -> dict:
     """Phase 2: bit-exact checks and timings of K1-K6 at the path shapes.
     Returns per-kernel sums over one BCNN forward's launches at batch
@@ -415,20 +458,31 @@ def kernel_phase(bound: Bound) -> dict:
                                     torch.float16).T.contiguous()
         nbytes = a.numel() * 4 + w.numel() * 4 + m * n * (1 if thr else 4)
         nbytes += n * 5 if thr else 0
+        k1 = kmm.vpu_plan(m, n, w.shape[1])
+        k1_name = "xnor_gemv_kernel" if k1.gemv else "xnor_matmul_vpu_kernel"
         for name, fn in (("xnor_matmul_vpu", kmm.xnor_matmul_vpu),
                          ("xnor_matmul_mxu", kmm.xnor_matmul_mxu)):
             def run(fn=fn):
                 return fn(a, w, k=k, thr_c=c, thr_flip=f)
             record(stats, name, run(), want, f"M={m} N={n} k={k} thr={thr}")
+            if site is None and name == "xnor_matmul_vpu":
+                record(stats, name,
+                       fn(shifted(a), shifted(w), k=k, thr_c=c, thr_flip=f),
+                       want, f"M={m} N={n} k={k} thr={thr}, operands 4 "
+                       f"bytes past 16")
+            # K1: its kernel-only time by the profiler at every timed shape
+            only = (f", kernel only {kernel_us(run, k1_name)} "
+                    f"(torch.profiler)" if name == "xnor_matmul_vpu" else "")
             if site == "lm":
                 d = device_ms(run)
                 lm_step_ms[name] += BW_CALLS[(k, n)] * d
-                print(f"  {name}: {d:.4g} ms on the device x "
-                      f"{BW_CALLS[(k, n)]} per LM decode step")
+                print(f"  {name}: {d * 1e3:.2f} µs a call on the device x "
+                      f"{BW_CALLS[(k, n)]} per LM decode step{only}")
             if site == "im2col":
                 d = device_ms(run)
                 im2col_ms[name] += d
-                print(f"  {name}: {d:.4g} ms on the device (im2col shape)")
+                print(f"  {name}: {d * 1e3:.2f} µs a call on the device "
+                      f"(im2col shape){only}")
             if site != "bcnn":
                 continue
             s = stats[name]
@@ -439,16 +493,21 @@ def kernel_phase(bound: Bound) -> dict:
             d = device_ms(run)
             s["ms"] += d
             s["call_ms"] += time_ms(run)
-            print(f"  {name}: {d:.4g} ms on the device, bound "
-                  f"{max(t_b, t_o):.4g} ms")
+            print(f"  {name}: {d * 1e3:.2f} µs a call on the device, bound "
+                  f"{max(t_b, t_o) * 1e3:.3g} µs{only}")
             s["plain_ms"] += device_ms(plain)
             s["library_ms"] += device_ms(lambda: a_pm1 @ w_pm1t)
         where = {"bcnn": " (BCNN path shape)", "lm": " (LM decode shape)",
                  "probe": " (LM probe shape)", "im2col": " (im2col shape)",
                  None: ""}[site]
         plan = kmm.mxu_plan(m, n, w.shape[1])
+        k1_line = (f"GEMV, row tile {k1.mt}, {1 << k1.lg} lanes a weight row"
+                   if k1.gemv else f"tiles 32 x {k1.bm}, "
+                   f"{len(k1.passes())} pass(es) of K, {k1.smem} B shared")
         print(f"K1/K2 bit-exact vs plain at M={m} N={n} k={k} "
-              f"thresholds={thr}{where}; K2 plan: tile {plan.bn} x "
+              f"thresholds={thr}{where}; K1 plan: {k1_line}, "
+              f"{'16' if k1.vec == 4 else '4'}-byte units, {k1.blocks} "
+              f"blocks; K2 plan: tile {plan.bn} x "
               f"{plan.bm}, cluster {plan.cs}, {plan.blocks} blocks, "
               f"{plan.smem} B shared")
     print("K1/K2 per LM decode step in mode xnor (24 calls, not in the "
@@ -492,6 +551,12 @@ def kernel_phase(bound: Bound) -> dict:
                           thr_c=th, thr_flip=fl)
             record(stats, name, run(), want, f"N={n} {h}x{wd} C={c} O={o} "
                    f"{f}x{f}/s{s_} thr={thr}")
+            if not on_path and name == "xnor_conv2d_vpu":
+                record(stats, name,
+                       fn(shifted(aw), shifted(ww), k=k, fh=f, fw=f,
+                          stride=s_, pad=(p, p), thr_c=th, thr_flip=fl),
+                       want, f"N={n} {h}x{wd} C={c} O={o} {f}x{f}/s{s_} "
+                       f"thr={thr}, operands 4 bytes past 16")
             if not on_path:
                 continue
             st = stats[name]
@@ -502,15 +567,21 @@ def kernel_phase(bound: Bound) -> dict:
             d = device_ms(run)
             st["ms"] += d
             st["call_ms"] += time_ms(run)
-            print(f"  {name}: {d:.4g} ms on the device, bound "
-                  f"{max(t_b, t_o):.4g} ms")
+            only = (f", kernel only {kernel_us(run, 'xnor_conv2d_vpu_kernel')}"
+                    f" (torch.profiler)" if name == "xnor_conv2d_vpu" else "")
+            print(f"  {name}: {d * 1e3:.2f} µs a call on the device, bound "
+                  f"{max(t_b, t_o) * 1e3:.3g} µs{only}")
             st["plain_ms"] += device_ms(plain)
             st["library_ms"] += device_ms(lambda: torch.nn.functional.conv2d(
                 a16, w16, stride=s_, padding=p))
         plan = kconv.mxu_plan(n, ho, wo, aw.shape[3], o, f, f, s_)
+        k3 = kconv.vpu_plan(n, ho, wo, aw.shape[3], o, f, f, s_)
         print(f"K3/K4 bit-exact vs plain at N={n} {h}x{wd} C={c} O={o} "
               f"{f}x{f} stride {s_} thresholds={thr}"
-              f"{' (path shape)' if on_path else ''}; K4 plan: {plan.th} x "
+              f"{' (path shape)' if on_path else ''}; K3 plan: {k3.th} x 8 "
+              f"positions x {kconv.K3_BO} channels, {k3.vec * 4}-byte units, "
+              f"L split {k3.ks} ways, {k3.blocks} blocks, {k3.smem} B shared;"
+              f" K4 plan: {plan.th} x "
               f"8 positions x {plan.bo} channels, L split {plan.ks} ways, "
               f"{plan.blocks} blocks, {plan.smem} B shared")
 
@@ -529,8 +600,8 @@ def kernel_phase(bound: Bound) -> dict:
         per = ("LM decode step at 4 slots" if name == "binary_weight_matmul"
                else f"call at (1, 32, 8, 128), S = {FLASH_PATH_S}, bf16 "
                f"views" if name == FLASH_NAMES["tc"]
-               else f"call at (1, 32, 8, 128), S = {FLASH_PATH_S}, float32"
-               if name == FLASH_NAMES["simt"]
+               else f"call at (B, Hq, Hkv, hd, S, causal) = "
+               f"{FLASH_SIMT_PATH}, float32" if name == FLASH_NAMES["simt"]
                else f"forward at batch {N_SLOTS}")
         print(f"{name}: per {per}: kernel "
               f"{s['ms']:.4f} ms on the device ({s['call_ms']:.4f} ms per "
@@ -835,7 +906,9 @@ def flash_phase(g, dev, stats: dict) -> None:
                       f"{max(t_b, t_o):.4g} ms (bytes {t_b:.4g}, operations "
                       f"{t_o:.4g}), plain {plain_ms:.4g} ms, SDPA "
                       f"{lib_ms:.4g} ms")
-                if s == FLASH_PATH_S:
+                if ((picked == "tc" and s == FLASH_PATH_S) or (
+                        picked == "simt"
+                        and (b, hq, hkv, hd, s, causal) == FLASH_SIMT_PATH)):
                     stats[name].update(
                         ms=d, call_ms=time_ms(run, reps=10),
                         plain_ms=plain_ms, library_ms=lib_ms, t_bytes=t_b,
@@ -884,7 +957,9 @@ def build_phase() -> None:
         if "Used" in line or "spill" in line or "error" in line:
             print(f"  nvcc: {line.strip()}")
             for kernel in ("xnor_matmul_mxu_kernel", "xnor_conv2d_mxu_kernel",
-                           "pair_vpu_kernel", "binary_weight_matmul_kernel"):
+                           "pair_vpu_kernel", "binary_weight_matmul_kernel",
+                           "xnor_gemv_kernel", "xnor_matmul_vpu_kernel",
+                           "xnor_conv2d_vpu_kernel"):
                 if kernel in entry:
                     print(f"  nvcc {kernel}: {line.strip()}")
 

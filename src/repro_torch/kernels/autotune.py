@@ -218,6 +218,19 @@ def _first(seq, head):
     return sorted(seq, key=lambda x: x != head)
 
 
+def tile_race_order(tiles, head):
+    """The order a fused pair's tiles race in: the heuristic ``head``
+    first, then the rest by decreasing area and, at equal area, the
+    squarer first. A larger, squarer tile recomputes less halo, and
+    ``_pick`` takes the first tile within noise of the fastest, so among
+    tiles it cannot tell apart the one that recomputes least wins. In the
+    order of ``tile_candidates`` a slower, thinner tile raced before the
+    fastest and sat at the edge of the noise band, and two tunings split
+    on it."""
+    return _first(sorted(tiles, key=lambda t: (-t[0] * t[1],
+                                               max(t) / min(t))), head)
+
+
 # ---------------------------------------------------------------------------
 # The tuner
 # ---------------------------------------------------------------------------
@@ -236,9 +249,9 @@ def autotune_packed(packed, *, device="cuda",
     2. per binary conv race the strategies under each path, per FC time
        each path; the global ``path`` is raced on the summed per-layer
        medians (spreads summed too);
-    3. under that path, race every legal tile of each fused pair; fusion
-       is raced on the summed fused times against the pairs' sequential
-       ones;
+    3. under that path, race every legal tile of each fused pair, in
+       ``tile_race_order``; fusion is raced on the summed fused times
+       against the pairs' sequential ones;
     4. require the assembled plan's logits on ``device`` to equal the CPU
        logits exactly.
 
@@ -319,7 +332,7 @@ def autotune_packed(packed, *, device="cuda",
                          input_hw=input_hw)}
     for i, pair in sorted(space["pairs"].items()):
         fa, fb = packed.convs[i - 1], packed.convs[i]
-        tiles = (_first(pair["tiles"], default_tiles[i])
+        tiles = (tile_race_order(pair["tiles"], default_tiles[i])
                  if win_path != "xla" else (None,))
         by_label = {f"pair{i}:{win_path}:tiles={tl}": tl for tl in tiles}
         scores = race([(label,

@@ -13,15 +13,34 @@
 //
 // K3 replaces src/repro/kernels/xnor_conv.py::xnor_conv2d_vpu
 //   (_xnor_conv_vpu_kernel, _gather_patches, _epilogue). Bound on the H100:
-//   the __popc issue rate (16 per clock per SM); every packed input word is
-//   reused fh*fw*O times. Design: one block per (image, 8x8 output tile,
-//   32 output channels). The block stages the tile's packed halo span,
-//   ((8-1)*s+fh) x ((8-1)*s+fw) x Cw words, with zero words outside the
-//   image (no padded copy in device memory), and the 32 filter rows in
-//   shared memory. Lane = output channel, warp = output row of the tile:
-//   halo reads are warp-wide broadcasts and filter rows sit at an odd word
-//   stride, so neither read conflicts on a bank. Each thread keeps 8
-//   agree-counts in registers.
+//   the CUDA cores' integer pipes over the XOR-popcounts (CONV-2..6 at batch
+//   4: 75.5 M words; per 16-byte unit the carry-save core issues 8 LOP3 and 1
+//   IADD3 at 64 a clock per SM and 2 POPC at 16, so the ALU pipe is the
+//   busier, about 10.2 us at 1980 MHz) and, per block, the latency of staging
+//   its operands. Design: a block of 4 warps takes th x 8 output positions and
+//   32 output channels of one image; lane = output channel (filter row), and
+//   each thread register-blocks VP = 4 positions of a tile row, so one 16-byte
+//   load of its filter row serves 4 positions and one broadcast 16-byte load
+//   of a patch 4 words. The XOR words go through the carry-save core of
+//   csrc/bits.cuh (xor_popc: two full adders per 16-byte unit, 2 popcounts
+//   instead of 4; agree = 32 L - sum popc(x XOR w) - n_pad, no NOT). The 32
+//   filter rows arrive by the TMA unit on an mbarrier: one bulk copy where L =
+//   4 mod 8 (rows as they lie), else one per row from warp 0's lanes into rows
+//   at L + 4 words, so the 8 rows a quarter-warp reads lie in 8 different
+//   16-byte bank groups; the halo, ((th-1)*s+fh) x (7*s+fw) x Cw words, by
+//   16-byte cp.async (warp = halo row, lane = pixel) with zero words outside
+//   the image, both in flight while the block loads its thresholds. vpu_plan
+//   (kernels/xnor_conv.py::vpu_plan mirrors it) halves th from 8 until the
+//   blocks make a wave of the 132 SMs (CONV-3/4 at th = 4, CONV-5/6 at th = 2:
+//   256 blocks each at batch 4, not 128 and 64), then until the block fits.
+//   The grid is (tiles, channel groups, images), the tile index split into row
+//   and column by a multiply and shift computed on the host; no block divides.
+//   The Table 2 geometries (3 x 3, stride 1, Cw 4, 8 and 16) are template
+//   constants; strided, ragged and 4-byte (Cw % 4 != 0) shapes run the same
+//   kernel with them read at run time. The wrapper copies an operand that does
+//   not start on 16 bytes, so 16-byte units need only Cw % 4 == 0. Where a
+//   block has at most 2 warp units (th = 1), L is split over its warps and the
+//   sums meet by shared-memory atomics (run_units in csrc/bits.cuh).
 //
 // K4 replaces src/repro/kernels/xnor_conv.py::xnor_conv2d_mxu
 //   (_xnor_conv_mxu_kernel). Bound on the H100: at the Table 2 shapes and
@@ -54,86 +73,197 @@
 
 #include "bits.cuh"
 
+REPRO_PHASE_TABLE(k3_phases)  // benchmarks/torch_vpu_phases.py k3
+
 namespace {
 
-constexpr int TH = 8;   // output rows per block tile
+constexpr int TH = 8;   // output rows per block tile (at most)
 constexpr int TW = 8;   // output cols per block tile
-constexpr int BO = 32;  // output channels per block tile
+constexpr int WAVE = 132;          // blocks that fill the H100's SMs once
 
-constexpr int K3_THREADS = 256;        // 8 warps: warp = tile row, lane = o
-constexpr int K3_PIX = TH * TW / 8;    // output pixels per thread
+constexpr int K3_THREADS = 128;    // 4 warps
+constexpr int K3_WARPS = K3_THREADS / 32;
+constexpr int K3_BO = 32;          // output channels per block: lane = channel
+constexpr int VP = 4;              // output positions per thread
 
-__global__ void __launch_bounds__(K3_THREADS)
+int pow2_at_least(int x, int lo, int hi) {
+  int p = lo;
+  while (p < x && p < hi) p *= 2;
+  return p;
+}
+
+// K3's static shared memory: split-L partial sums, one int per (lane,
+// position) of at most K3_WARPS / 2 warp units, and the filter rows'
+// mbarrier.
+struct K3Static {
+  int red[K3_WARPS / 2 * 32 * VP];
+  uint64_t bar;
+};
+
+// K3's launch, computed on the host: tile height th, filter row stride ls
+// (words), dynamic shared memory, and the multiply-shift that splits a
+// tile index into row and column.
+struct VpuConv {
+  int H, W, Cw, O, fh, fw, stride, ph, pw, Ho, Wo, n_pad;
+  int th, tiles_w, tiles_h, ls;
+  size_t smem;
+  repro::FastDiv tiles;
+};
+
+// Word stride of a staged filter row of L words: 16-byte units (Cw % 4 ==
+// 0), L where L = 4 mod 8 (one bulk copy for all rows), else L + 4, so the
+// 8 rows a quarter-warp reads start in 8 different 16-byte bank groups;
+// 4-byte words: odd, so 32 rows lie in 32 banks.
+int k3_stride(int L, int V) {
+  return V == 4 ? (L % 8 == 4 ? L : L + 4) : (L | 1);
+}
+
+// th from min(TH, Ho rounded up to a power of two), halved until the blocks
+// make a wave, then until the block fits. Returns false when th = 1 does
+// not fit.
+bool vpu_plan(int N, int Cw, int O, int fh, int fw, int stride, int Ho,
+              int Wo, VpuConv* g) {
+  const int L = fh * fw * Cw, V = Cw % 4 == 0 ? 4 : 1;
+  g->ls = k3_stride(L, V);
+  g->tiles_w = (Wo + TW - 1) / TW;
+  const long long per_tile_row = static_cast<long long>(N) * g->tiles_w *
+                                 ((O + K3_BO - 1) / K3_BO);
+  int th = pow2_at_least(Ho, 1, TH);
+  while (th > 1 && per_tile_row * ((Ho + th - 1) / th) < WAVE) th /= 2;
+  for (;; th /= 2) {
+    const int sh = (th - 1) * stride + fh, sw = (TW - 1) * stride + fw;
+    g->smem = sizeof(uint32_t) * (static_cast<size_t>(K3_BO) * g->ls +
+                                  static_cast<size_t>(sh) * sw * Cw);
+    if (g->smem + sizeof(K3Static) <= repro::SMEM_LIMIT) break;
+    if (th == 1) return false;
+  }
+  g->th = th;
+  g->tiles_h = (Ho + th - 1) / th;
+  g->tiles = repro::make_fastdiv(g->tiles_w);
+  return true;
+}
+
+// CW, F, S > 0 fix Cw, the filter (F x F) and the stride at compile time
+// (the Table 2 convs); 0 reads them from g. V: words per shared-memory
+// load, 4 where Cw % 4 == 0, else 1.
+template <int CW, int F, int S, int V>
+__global__ void __launch_bounds__(K3_THREADS, 4)
 xnor_conv2d_vpu_kernel(const int32_t* __restrict__ a,
                        const int32_t* __restrict__ w,
                        const float* __restrict__ c,
                        const uint8_t* __restrict__ flip,
-                       void* __restrict__ out, int H, int W, int Cw, int O,
-                       int fh, int fw, int stride, int ph, int pw, int Ho,
-                       int Wo, int n_pad, int tiles_w) {
-  extern __shared__ uint32_t smem[];
-  const int L = fh * fw * Cw;
-  const int ls = L | 1;  // odd word stride between filter rows
-  const int sw = (TW - 1) * stride + fw;
-  const int sh = (TH - 1) * stride + fh;
-  uint32_t* w_s = smem;            // [BO][ls]
-  uint32_t* x_s = smem + BO * ls;  // [sh][sw][Cw]
-  const int n = blockIdx.z;
-  const int oh0 = (blockIdx.x / tiles_w) * TH;
-  const int ow0 = (blockIdx.x % tiles_w) * TW;
-  const int o0 = blockIdx.y * BO;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+                       void* __restrict__ out, VpuConv g) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ K3Static st;
+  REPRO_PHASE(k3_phases, 0);  // started
+  const int cw = CW > 0 ? CW : g.Cw;
+  const int fh = F > 0 ? F : g.fh, fw = F > 0 ? F : g.fw;
+  const int s = S > 0 ? S : g.stride;
+  const int L = fh * fw * cw, ls = g.ls;
+  const int sh = (g.th - 1) * s + fh, sw = (TW - 1) * s + fw;
+  uint32_t* w_s = smem;                        // [K3_BO][ls]
+  uint32_t* x_s = smem + K3_BO * ls;           // [sh][sw][cw]
+  // grid: (tile, channel group, image); the tile's row by a multiply-shift
+  const int ty = static_cast<int>(repro::fastdiv(blockIdx.x, g.tiles));
+  const int oh0 = ty * g.th;
+  const int ow0 = (static_cast<int>(blockIdx.x) - ty * g.tiles_w) * TW;
+  const int o0 = blockIdx.y * K3_BO, n = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rows = min(K3_BO, g.O - o0);
 
-  for (int i = tid; i < BO * L; i += K3_THREADS) {
-    const int r = i / L, l = i % L;
-    w_s[r * ls + l] = (o0 + r < O)
-        ? static_cast<uint32_t>(w[static_cast<size_t>(o0 + r) * L + l])
-        : 0u;
+  // the block's filter rows: by the TMA unit where they are 16-byte units
+  // (one bulk copy where ls == L, else one a row, issued by warp 0's
+  // lanes), else by 4-byte cp.async (warp = row, lane = word); the wrapper
+  // hands over operands that start on 16 bytes
+  const int32_t* wsrc = w + static_cast<size_t>(o0) * L;
+  if constexpr (V == 4) {
+    if (warp == 0) {
+      if (lane == 0) {
+        repro::mbar_init(&st.bar);
+        repro::mbar_expect_tx(&st.bar, rows * L * 4);
+      }
+      __syncwarp();
+      if (ls == L) {
+        if (lane == 0) repro::bulk_copy(w_s, wsrc, rows * L * 4, &st.bar);
+      } else {
+        for (int r = lane; r < rows; r += 32)
+          repro::bulk_copy(w_s + r * ls, wsrc + r * L, L * 4, &st.bar);
+      }
+    }
+  } else {
+    for (int r = warp; r < rows; r += K3_WARPS)
+      for (int k = lane; k < L; k += 32)
+        repro::cp_async4(w_s + r * ls + k, wsrc + r * L + k);
   }
-  const int ih0 = oh0 * stride - ph, iw0 = ow0 * stride - pw;
-  for (int i = tid; i < sh * sw * Cw; i += K3_THREADS) {
-    const int cw = i % Cw, x = (i / Cw) % sw, y = i / (Cw * sw);
-    const int ih = ih0 + y, iw = iw0 + x;
-    x_s[i] = (ih >= 0 && ih < H && iw >= 0 && iw < W)
-        ? static_cast<uint32_t>(
-              a[((static_cast<size_t>(n) * H + ih) * W + iw) * Cw + cw])
-        : 0u;
-  }
-  __syncthreads();
-
-  int acc[K3_PIX];
-#pragma unroll
-  for (int j = 0; j < K3_PIX; ++j) acc[j] = 0;
-  const uint32_t* wrow = w_s + lane * ls;
-  const int py = warp;  // this warp's output row within the tile
-  for (int dy = 0; dy < fh; ++dy) {
-    for (int dx = 0; dx < fw; ++dx) {
-      const uint32_t* xrow = x_s + ((py * stride + dy) * sw + dx) * Cw;
-      const uint32_t* wpos = wrow + (dy * fw + dx) * Cw;
-      for (int cw = 0; cw < Cw; ++cw) {
-        const uint32_t wv = wpos[cw];
-#pragma unroll
-        for (int j = 0; j < K3_PIX; ++j)
-          acc[j] += __popc(~(xrow[j * stride * Cw + cw] ^ wv));
+  // the halo by cp.async (warp = halo row, lane = pixel; 16-byte copies
+  // where V == 4), zero words outside the image
+  const int ih0 = oh0 * s - g.ph, iw0 = ow0 * s - g.pw;
+  for (int y = warp; y < sh; y += K3_WARPS) {
+    const int ih = ih0 + y;
+    for (int x = lane; x < sw; x += 32) {
+      const int iw = iw0 + x;
+      uint32_t* d = x_s + (y * sw + x) * cw;
+      if (ih >= 0 && ih < g.H && iw >= 0 && iw < g.W) {
+        const int32_t* src =
+            a + ((static_cast<size_t>(n) * g.H + ih) * g.W + iw) * cw;
+        if constexpr (V == 4) {
+          for (int k = 0; k < cw; k += 4) repro::cp_async16(d + k, src + k);
+        } else {
+          for (int k = 0; k < cw; ++k) repro::cp_async4(d + k, src + k);
+        }
+      } else {
+        for (int k = 0; k < cw; ++k) d[k] = 0u;
       }
     }
   }
-  const int o = o0 + lane, oh = oh0 + py;
-  if (o >= O || oh >= Ho) return;
+  repro::cp_async_commit();
+  REPRO_PHASE(k3_phases, 1);  // copies issued
+  // this lane's channel and its threshold, loaded while the copies fly
+  const int o = o0 + lane;
+  const bool live = o < g.O;
+  const bool thr = c != nullptr && live;
+  const float c_o = thr ? c[o] : 0.f;
+  const bool f_o = thr && flip[o] != 0;
+  for (int i = threadIdx.x; i < K3_WARPS / 2 * 32 * VP; i += K3_THREADS)
+    st.red[i] = 0;
+  repro::cp_async_wait_all();
+  __syncthreads();
+  if constexpr (V == 4) repro::mbar_wait(&st.bar, 0);  // what the TMA wrote
+  REPRO_PHASE(k3_phases, 2);  // operands landed
+
+  // warp units: 32 channels x VP positions of one tile row (position p =
+  // py * TW + px; TW is a power of two, so p / TW and p % TW shift)
+  const int kp = 32 * L - g.n_pad;
+  auto base = [&](int p) { return ((p / TW) * s * sw + (p % TW) * s) * cw; };
+  auto epi = [&](int, int pb, const int (&dis)[VP]) {
+    const int oh = oh0 + pb * VP / TW, ow = ow0 + pb * VP % TW;
+    if (!live || oh >= g.Ho) return;
+    const size_t idx =
+        ((static_cast<size_t>(n) * g.Ho + oh) * g.Wo + ow) * g.O + o;
 #pragma unroll
-  for (int j = 0; j < K3_PIX; ++j) {
-    const int ow = ow0 + j;
-    if (ow < Wo)
-      repro::store_output(
-          out, ((static_cast<size_t>(n) * Ho + oh) * Wo + ow) * O + o,
-          acc[j] - n_pad, c, flip, o);
-  }
+    for (int j = 0; j < VP; ++j) {
+      if (ow + j >= g.Wo) break;
+      const int y = kp - dis[j];
+      const size_t at = idx + static_cast<size_t>(j) * g.O;
+      if (c != nullptr)
+        static_cast<int8_t*>(out)[at] =
+            static_cast<int8_t>((static_cast<float>(y) >= c_o) != f_o);
+      else
+        static_cast<int32_t*>(out)[at] = y;
+    }
+  };
+  repro::run_units<K3_WARPS, VP, V, (F > 0 && CW > 0 ? F * CW / V : 0)>(
+      1, g.th * TW / VP, w_s, ls, x_s, sw * cw, fw * cw / V, L / V, base,
+      epi, st.red);
+#ifdef REPRO_PHASES
+  __syncthreads();
+#endif
+  REPRO_PHASE(k3_phases, 3);  // every warp done
 }
 
 constexpr int K4_THREADS = 128;    // 4 warps
 constexpr int K4_WARPS = K4_THREADS / 32;
 constexpr int K4_NT = 4;           // most n8 tiles (output rows) per warp unit
-constexpr int WAVE = 132;          // blocks that fill the H100's SMs once
 
 // A block: th output rows x TW columns x bo channels of one image; the
 // filter words stream through shared memory lc at a time (lc = L rounded
@@ -142,12 +272,6 @@ struct ConvPlan {
   int th, bo, lc, sh, sw, P, ks;
   size_t smem;
 };
-
-int pow2_at_least(int x, int lo, int hi) {
-  int p = lo;
-  while (p < x && p < hi) p *= 2;
-  return p;
-}
 
 size_t conv_smem_words(const ConvPlan& p, int L) {
   const int tp = p.th * TW, l8 = (L + 7) / 8 * 8;
@@ -395,24 +519,28 @@ int xnor_conv2d_vpu(const void* a, const void* w, const void* c,
                     const void* flip, void* out, int N, int H, int W, int Cw,
                     int O, int fh, int fw, int stride, int ph, int pw, int Ho,
                     int Wo, int n_pad, void* stream) {
-  const int tiles_w = (Wo + TW - 1) / TW, tiles_h = (Ho + TH - 1) / TH;
-  const int L = fh * fw * Cw;
-  const size_t words = static_cast<size_t>(BO) * (L | 1) +
-      static_cast<size_t>((TH - 1) * stride + fh) * ((TW - 1) * stride + fw) * Cw;
-  const size_t smem = words * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        xnor_conv2d_vpu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid(tiles_h * tiles_w, (O + BO - 1) / BO, N);
-  xnor_conv2d_vpu_kernel<<<grid, K3_THREADS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(a), static_cast<const int32_t*>(w),
-      static_cast<const float*>(c), static_cast<const uint8_t*>(flip), out, H,
-      W, Cw, O, fh, fw, stride, ph, pw, Ho, Wo, n_pad, tiles_w);
-  return static_cast<int>(cudaGetLastError());
+  VpuConv g;
+  if (!vpu_plan(N, Cw, O, fh, fw, stride, Ho, Wo, &g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  g.H = H; g.W = W; g.Cw = Cw; g.O = O; g.fh = fh; g.fw = fw;
+  g.stride = stride; g.ph = ph; g.pw = pw; g.Ho = Ho; g.Wo = Wo;
+  g.n_pad = n_pad;
+  const long long tiles = static_cast<long long>(g.tiles_h) * g.tiles_w;
+  const int o_groups = (O + K3_BO - 1) / K3_BO;
+  if (tiles > 0x7fffffffLL || o_groups > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the Table 2 convs at compile time, the rest through the same kernel
+  // with its geometry read at run time
+  const bool t2 = fh == 3 && fw == 3 && stride == 1;
+  const auto kernel =
+      t2 && Cw == 4      ? xnor_conv2d_vpu_kernel<4, 3, 1, 4>
+      : t2 && Cw == 8    ? xnor_conv2d_vpu_kernel<8, 3, 1, 4>
+      : t2 && Cw == 16   ? xnor_conv2d_vpu_kernel<16, 3, 1, 4>
+      : Cw % 4 == 0      ? xnor_conv2d_vpu_kernel<0, 0, 0, 4>
+                         : xnor_conv2d_vpu_kernel<0, 0, 0, 1>;
+  return repro::launch_cluster(
+      kernel, dim3(static_cast<unsigned>(tiles), o_groups, N), dim3(1),
+      K3_THREADS, g.smem, stream, a, w, c, flip, out, g);
 }
 
 int xnor_conv2d_mxu(const void* a, const void* w, const void* c,

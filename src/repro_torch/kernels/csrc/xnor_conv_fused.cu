@@ -99,29 +99,7 @@
 
 #include "bits.cuh"
 
-// Phase stamps for benchmarks/torch_vpu_phases.py. Built with
-// REPRO_VPU_PHASES defined, thread 0 of every vpu block writes %globaltimer
-// at VPU_PHASE(i), i = 0 .. 6, and its SM in column 7 of vpu_phases, which
-// vpu_phases_read copies out; otherwise VPU_PHASE is empty.
-#ifdef REPRO_VPU_PHASES
-__device__ unsigned long long vpu_phases[1 << 16][8];
-#define VPU_PHASE(i)                                                        \
-  if (threadIdx.x == 0) {                                                   \
-    const size_t b =                                                        \
-        (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;     \
-    unsigned long long now;                                                 \
-    unsigned sm;                                                            \
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));                 \
-    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));                         \
-    vpu_phases[b][i] = now;                                                 \
-    vpu_phases[b][7] = sm;                                                  \
-  }
-extern "C" int vpu_phases_read(void* dst, size_t bytes) {
-  return static_cast<int>(cudaMemcpyFromSymbol(dst, vpu_phases, bytes));
-}
-#else
-#define VPU_PHASE(i)
-#endif
+REPRO_PHASE_TABLE(vpu_phases)  // benchmarks/torch_vpu_phases.py k5
 
 namespace {
 
@@ -132,6 +110,12 @@ using repro::cp_async16;
 using repro::cp_async4;
 using repro::cp_async_commit;
 using repro::cp_async_wait_all;
+using repro::cp_async_wait_group;
+using repro::bulk_copy;
+using repro::load_words;
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
 using repro::smem_u32;
 
 constexpr int THREADS = 256;
@@ -258,65 +242,6 @@ __device__ __forceinline__ bool nb_bit(int y, float c, bool flip) {
   return (static_cast<float>(y) >= c) != flip;
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               "fence.mbarrier_init.release.cluster;\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// Wait until the phase of parity `parity` of bar has completed; trap after
-// 60 s (a copy that never lands), which leaves the CUDA context unusable.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile("{\n.reg .pred p;\n"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (done) return;
-    uint64_t now;
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-    if (t0 == 0) {
-      t0 = now;
-    } else if (now - t0 > 60000000000ull) {
-      __trap();
-    }
-  }
-}
-
-// `bytes` (a multiple of 16) from global to shared memory by the TMA unit,
-// counted on bar.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
-               "::bytes [%0], [%1], %2, [%3];\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes),
-                  "r"(smem_u32(bar))
-               : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-template <int V>
-__device__ __forceinline__ void load_words(const uint32_t* p,
-                                           uint32_t (&w)[V]) {
-  if constexpr (V == 4) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
-    w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
-  } else {
-    w[0] = *p;
-  }
-}
-
 // ---------------------------------------------------------------- vpu ----
 
 // Word stride of a staged filter row of L words: V = 4 (16-byte loads, L a
@@ -351,138 +276,6 @@ __device__ __forceinline__ void stage_vpu_rows(const int32_t* __restrict__ w,
   }
 }
 
-// dis[j] += the sum over vector units u0 .. u1-1 (V words each) of
-// popc(x XOR w): filter row f, its words in order, against the patch of
-// position j, whose word 0 is src[base[j]]. A tap row of the filter is
-// nrow units that lie contiguous in src; the next tap row starts src_row
-// words further on. NROW > 0 fixes nrow at compile time. Every V-word load
-// of f serves VP positions. With V = 4 the four XOR words of a position
-// pass through two full adders (carry-save, a LOP3 each for sum and
-// carry) into a running word `ones`, so popc(ones) + 2 * (popc of the
-// carries) keeps the count: 2 popcounts a unit instead of 4, for 4 more
-// LOP3s (the popc pipe runs 16 lanes a clock per SM, LOP3 64).
-template <int V, int NROW>
-__device__ __forceinline__ void xor_popc(const uint32_t* f,
-                                         const uint32_t* src,
-                                         const int (&base)[VP], int src_row,
-                                         int nrow_rt, int u0, int u1,
-                                         int (&dis)[VP]) {
-  const int nrow = NROW > 0 ? NROW : nrow_rt;
-  int dy = 0, r = u0;
-  while (r >= nrow) {                // a K slice starts in tap row dy
-    r -= nrow;
-    ++dy;
-  }
-  int off = dy * src_row + r * V;
-  const int skip = src_row - nrow * V;
-  uint32_t ones[VP];
-  int twos[VP];
-#pragma unroll
-  for (int j = 0; j < VP; ++j) {
-    ones[j] = 0u;
-    twos[j] = 0;
-  }
-  for (int u = u0; u < u1; ++u) {
-    uint32_t w[V];
-    load_words<V>(f + u * V, w);
-#pragma unroll
-    for (int j = 0; j < VP; ++j) {
-      uint32_t x[V];
-      load_words<V>(src + base[j] + off, x);
-      if constexpr (V == 4) {
-        const uint32_t d0 = x[0] ^ w[0], d1 = x[1] ^ w[1];
-        const uint32_t d2 = x[2] ^ w[2], d3 = x[3] ^ w[3];
-        const uint32_t o = ones[j];
-        const uint32_t c1 = (o & d0) | (o & d1) | (d0 & d1);
-        const uint32_t s1 = o ^ d0 ^ d1;
-        const uint32_t c2 = (s1 & d2) | (s1 & d3) | (d2 & d3);
-        ones[j] = s1 ^ d2 ^ d3;
-        twos[j] += __popc(c1) + __popc(c2);
-      } else {
-        dis[j] += __popc(x[0] ^ w[0]);
-      }
-    }
-    off += V;
-    if (++r == nrow) {                               // next tap row
-      r = 0;
-      off += skip;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < VP; ++j) dis[j] += __popc(ones[j]) + 2 * twos[j];
-}
-
-// One pass's filter rows x positions over the block's warps. A warp unit
-// is 32 filter rows (lane = row; rows 32 g + lane of f_s at stride ls) by
-// VP positions (base(p): the patch start of position p), positions in nb
-// blocks of VP. With at most WARPS / 2 units, K (nv units of V words) is
-// split into ks (a power of 2) contiguous slices whose partial sums meet
-// in red (shared-memory atomics); a split of 6 units over 8 warps measured
-// slower than none. Item i = (slice, position block, row group), row group
-// fastest, goes to warp i mod WARPS. epi(g, pb, dis) receives each unit's
-// whole XOR-popcount sums, in all 32 lanes of one warp.
-template <int V, int NROW, class Base, class Epi>
-__device__ __forceinline__ void run_units(int groups, int nb,
-                                          const uint32_t* f_s, int ls,
-                                          const uint32_t* src, int src_row,
-                                          int nrow, int nv, Base base,
-                                          Epi epi, int* red) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int units = groups * nb;
-  int ks = 1, lks = 0;
-  while (2 * ks * units <= WARPS && 2 * ks <= nv) {
-    ks *= 2;
-    ++lks;
-  }
-  int grp = 0, pb = 0, sl = 0;
-  for (int i = 0; i < units * ks; ++i) {
-    if (i % WARPS == warp) {
-      int b[VP], dis[VP];
-#pragma unroll
-      for (int j = 0; j < VP; ++j) {
-        b[j] = base(pb * VP + j);
-        dis[j] = 0;
-      }
-      xor_popc<V, NROW>(f_s + (grp * 32 + lane) * ls, src, b, src_row, nrow,
-                        (nv * sl) >> lks, (nv * (sl + 1)) >> lks, dis);
-      if (ks == 1) {
-        epi(grp, pb, dis);
-      } else {
-#pragma unroll
-        for (int j = 0; j < VP; ++j)
-          atomicAdd(&red[((pb * groups + grp) * VP + j) * 32 + lane], dis[j]);
-      }
-    }
-    if (++grp == groups) {
-      grp = 0;
-      if (++pb == nb) {
-        pb = 0;
-        ++sl;
-      }
-    }
-  }
-  if (ks > 1) {
-    __syncthreads();
-    grp = pb = 0;
-    for (int i = 0; i < units; ++i) {
-      if (i % WARPS == warp) {
-        int dis[VP];
-#pragma unroll
-        for (int j = 0; j < VP; ++j) {
-          int* r = &red[((pb * groups + grp) * VP + j) * 32 + lane];
-          dis[j] = *r;
-          *r = 0;                                    // clean for the next pass
-        }
-        epi(grp, pb, dis);
-      }
-      if (++grp == groups) {
-        grp = 0;
-        ++pb;
-      }
-    }
-  }
-}
-
 // Cluster rank r of csize blocks per (image, tile): conv A for OA channels
 // [r OA/csize, (r+1) OA/csize) over the whole A halo, each channel word of
 // the bit map written into the map of every rank (DSMEM); after a cluster
@@ -504,7 +297,7 @@ pair_vpu_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ wa,
   __shared__ VpuStatic st;
   // barrier phase 0, split: this block has started (no memory to order)
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-  VPU_PHASE(0);                          // started
+  REPRO_PHASE(vpu_phases, 0);  // started
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   unsigned tx;                           // the cluster's tile column
@@ -564,7 +357,7 @@ pair_vpu_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ wa,
   cp_async_commit();
   if (!bulk) stage_vpu_rows(wb, LB, ob0, rb, lsb, fb_s);
   cp_async_commit();
-  VPU_PHASE(1);                          // copies issued
+  REPRO_PHASE(vpu_phases, 1);  // copies issued
   // position tables (warp = row, lane = column), so that nothing divides
   for (int y = warp; y < t.ha; y += WARPS)
     for (int x = lane; x < t.wa; x += 32)
@@ -585,12 +378,12 @@ pair_vpu_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ wa,
   if (tid < round_vp(RB) - RB) pos_b[RB + tid] = 0;
   if (tid < round_vp(Q) - Q) out_q[Q + tid] = -1;
   for (int i = tid; i < WARPS / 2 * 32 * VP; i += THREADS) st.red[i] = 0;
-  VPU_PHASE(2);                          // tables built
+  REPRO_PHASE(vpu_phases, 2);  // tables built
   cp_async_wait_group<1>();
   __syncthreads();
   if (bulk) mbar_wait(&st.bar[0], 0);    // acquires what the TMA wrote
   cluster_wait();                        // every peer's map may be written
-  VPU_PHASE(3);                          // conv A's data landed
+  REPRO_PHASE(vpu_phases, 3);  // conv A's data landed
 
   // conv A: rows = this rank's OA channels, positions = the A halo; eq. 8
   // and the halo mask per bit, one __ballot_sync per channel word
@@ -622,15 +415,15 @@ pair_vpu_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ wa,
         }
       }
     };
-    run_units<V, (F > 0 && CW > 0 ? F * CW / V : 0)>(
+    repro::run_units<WARPS, VP, V, (F > 0 && CW > 0 ? F * CW / V : 0)>(
         rows / 32, round_vp(PA) / VP, fa_s, lsa, x_s, t.cx * cwa,
         fwa * cwa / V, LA / V, base_a, epi_a, st.red);
   }
-  VPU_PHASE(4);                          // conv A done
+  REPRO_PHASE(vpu_phases, 4);  // conv A done
   if (bulk) mbar_wait(&st.bar[1], 0);    // conv B's first rows
   cp_async_wait_all();
   cluster.sync();                        // phase 1: every map is complete
-  VPU_PHASE(5);                          // the bit map shared
+  REPRO_PHASE(vpu_phases, 5);  // the bit map shared
 
   // conv B: rows = this rank's OB channels, positions = (pooled output q,
   // window slot s), VP of them per unit: one window (PF = 2) or VP outputs
@@ -666,11 +459,11 @@ pair_vpu_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ wa,
           out_n[oq + o] = static_cast<int8_t>(flip ? all : any);
       }
     };
-    run_units<V, (F > 0 && OW > 0 ? F * OW / V : 0)>(
+    repro::run_units<WARPS, VP, V, (F > 0 && OW > 0 ? F * OW / V : 0)>(
         (rows + 31) / 32, round_vp(RB) / VP, fb_s, lsb, a_s, t.wa * oaw,
         fwb * oaw / V, LB / V, base_b, epi_b, st.red);
   }
-  VPU_PHASE(6);                          // conv B done
+  REPRO_PHASE(vpu_phases, 6);  // conv B done
 }
 
 // ---------------------------------------------------------------- mxu ----

@@ -7,14 +7,31 @@
 // Ragged M, N and Kw are masked inside the kernels; nothing is pre-padded.
 //
 // K1 replaces src/repro/kernels/xnor_matmul.py::xnor_matmul_vpu
-//   (_xnor_vpu_kernel). Bound on the H100: the __popc issue rate (16 per
-//   clock per SM) once M is large (im2col convs); at the FC shapes of the
-//   served batch (M = slots) the weight bytes and the launch itself.
-//   Design: one thread per output; a block stages an 8-row activation tile
-//   and a 32-row weight tile, 32 words deep, in shared memory, so each word
-//   read from device memory feeds 8 or 32 XNOR+popcounts. The weight tile
-//   row stride is 33 words, so the 32 lanes of a warp (32 weight rows, one
-//   activation row broadcast) read 32 different banks.
+//   (_xnor_vpu_kernel). XNOR + __popc on the CUDA cores in two regimes,
+//   chosen on the host by vpu_plan (kernels/xnor_matmul.py::vpu_plan
+//   mirrors it) from (M, N, Kw) alone; the wrapper copies an operand that
+//   does not start on 16 bytes, so 16-byte units need only Kw % 4 == 0:
+//   - decode-shaped, M <= K1_GEMV_M (FC-1..3 at the served batch, the XNOR
+//     LM's "xnor" decode step): bound by the launch and one round trip for
+//     the weights (FC-1: 1 MB, 0.3 us at the HBM rate). A GEMV with no
+//     shared memory and no block barrier: 4 warps a block, each lane reads
+//     its share of K (16-byte units where Kw % 4 == 0, else words) of one
+//     weight row and of MT = 1, 2 or 4 activation rows straight from device
+//     memory into registers, a group of 2^lg lanes per weight row (2^lg the
+//     least power of two >= the row's units, at most 32, so short rows
+//     leave no lane idle: Kw = 4 puts 32 rows in a warp), the units through
+//     the carry-save core of csrc/bits.cuh, the group's sums added by an
+//     xor butterfly of shuffles, eq. 8 fused. FC-1 launches 256 blocks.
+//   - tiled, larger M (the im2col convs): bound by the integer pipes over
+//     the XOR-popcounts. K3's core with activation rows in place of
+//     positions: a block of 4 warps takes 32 weight rows (lane = row) x bm
+//     activation rows (64, halved to 16 until the blocks make a wave),
+//     each thread VP = 4 activation rows in registers, so a 16-byte load of
+//     its weight row serves 4 rows and a broadcast 16-byte load of an
+//     activation row 4 words; the carry-save core halves the popcounts.
+//     Both operands' rows arrive by the TMA unit, one bulk copy a row
+//     issued by warp 0's lanes, into rows at a stride of 4 mod 8 words, K
+//     at most K1_PASS words a pass; sums stay in registers across passes.
 //
 // K2 replaces src/repro/kernels/xnor_matmul.py::xnor_matmul_mxu
 //   (_xnor_mxu_kernel). Bound on the H100: at the served batch (M = slots,
@@ -52,51 +69,228 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int K1_TM = 8;    // output rows per block (threadIdx.y)
-constexpr int K1_TN = 32;   // output cols per block (threadIdx.x)
-constexpr int K1_KC = 32;   // packed words staged per step
+constexpr int K1_THREADS = 128;    // 4 warps, both regimes
+constexpr int K1_WARPS = K1_THREADS / 32;
+constexpr int K1_GEMV_M = 16;      // the GEMV serves M up to this
+constexpr int K1_BN = 32;          // tiled: weight rows per block (lane = row)
+constexpr int K1_VP = 4;           // tiled: activation rows per thread
+constexpr int K1_BM = 64;          // tiled: most activation rows per block
+constexpr int K1_PASS = 256;       // tiled: most words of K staged per pass
+constexpr int WAVE = 132;          // blocks that fill the H100's SMs once
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(K1_TM * K1_TN)
+template <int V>
+__device__ __forceinline__ void ldg_words(const int32_t* p, uint32_t (&w)[V]) {
+  if constexpr (V == 4) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+    w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
+  } else {
+    w[0] = static_cast<uint32_t>(__ldg(p));
+  }
+}
+
+// Decode-shaped K1: a lane of group (lane >> lg) reads units j0, j0 + 2^lg,
+// ... of weight row n and of activation rows m0 .. m0+MT-1 (units of V
+// words: 16 bytes where V = 4), keeps each row's carry-save state in
+// registers, and the group adds its sums by a butterfly of shuffles; lane
+// j0 of the group stores the rows r with r mod 2^lg == j0.
+template <int MT, int V>
+__global__ void __launch_bounds__(K1_THREADS)
+xnor_gemv_kernel(const int32_t* __restrict__ a,
+                 const int32_t* __restrict__ w,
+                 const float* __restrict__ c,
+                 const uint8_t* __restrict__ flip,
+                 void* __restrict__ out, int M, int N, int Kw, int n_pad,
+                 int lg) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int j0 = lane & ((1 << lg) - 1);
+  const int n = ((blockIdx.x * K1_WARPS + warp) << (5 - lg)) + (lane >> lg);
+  const int m0 = blockIdx.y * MT;
+  const bool live = n < N;
+  const bool thr = c != nullptr && live;
+  const float c_n = thr ? c[n] : 0.f;
+  const bool f_n = thr && flip[n] != 0;
+  const int32_t* wr = w + static_cast<size_t>(live ? n : N - 1) * Kw;
+  const int32_t* ar[MT];
+#pragma unroll
+  for (int r = 0; r < MT; ++r)
+    ar[r] = a + static_cast<size_t>(min(m0 + r, M - 1)) * Kw;
+  const int units = V == 4 ? Kw >> 2 : Kw;
+  uint32_t ones[MT];
+  int twos[MT], dis[MT];
+#pragma unroll
+  for (int r = 0; r < MT; ++r) {
+    ones[r] = 0u;
+    twos[r] = dis[r] = 0;
+  }
+#pragma unroll 2
+  for (int u = j0; u < units; u += 1 << lg) {
+    uint32_t wv[V];
+    ldg_words<V>(wr + u * V, wv);
+#pragma unroll
+    for (int r = 0; r < MT; ++r) {
+      uint32_t x[V];
+      ldg_words<V>(ar[r] + u * V, x);
+      if constexpr (V == 4)
+        repro::csa_unit(x[0] ^ wv[0], x[1] ^ wv[1], x[2] ^ wv[2],
+                        x[3] ^ wv[3], ones[r], twos[r]);
+      else
+        dis[r] += __popc(x[0] ^ wv[0]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < MT; ++r) {
+    dis[r] += __popc(ones[r]) + 2 * twos[r];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      if (o < (1 << lg)) dis[r] += __shfl_xor_sync(FULL, dis[r], o);
+  }
+  if (!live) return;
+  const int kp = 32 * Kw - n_pad;
+#pragma unroll
+  for (int r = 0; r < MT; ++r) {
+    if ((r & ((1 << lg) - 1)) != j0 || m0 + r >= M) continue;
+    const size_t idx = static_cast<size_t>(m0 + r) * N + n;
+    const int y = kp - dis[r];
+    if (c != nullptr)
+      static_cast<int8_t*>(out)[idx] =
+          static_cast<int8_t>((static_cast<float>(y) >= c_n) != f_n);
+    else
+      static_cast<int32_t*>(out)[idx] = y;
+  }
+}
+
+// Tiled K1: block (m tile, n tile) of bm activation rows x K1_BN weight
+// rows; warp unit pb = K1_VP activation rows x 32 weight rows, units warp,
+// warp + 4, ... (bm / 16 of them a warp). Per pass, kn <= kc words of K of
+// both operands' rows are staged at stride ls: by one TMA bulk copy a row
+// on an mbarrier where V = 4 (the wrapper hands over operands that start
+// on 16 bytes), else by 4-byte cp.async.
+template <int V>
+__global__ void __launch_bounds__(K1_THREADS, 4)
 xnor_matmul_vpu_kernel(const int32_t* __restrict__ a,
                        const int32_t* __restrict__ w,
                        const float* __restrict__ c,
                        const uint8_t* __restrict__ flip,
                        void* __restrict__ out, int M, int N, int Kw,
-                       int n_pad) {
-  __shared__ uint32_t a_s[K1_TM][K1_KC];
-  __shared__ uint32_t w_s[K1_TN][K1_KC + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * K1_TN + tx;
-  const int m0 = blockIdx.x * K1_TM, n0 = blockIdx.y * K1_TN;
-  int acc = 0;
-  for (int k0 = 0; k0 < Kw; k0 += K1_KC) {
-    const int kn = min(K1_KC, Kw - k0);
-    for (int i = tid; i < K1_TM * K1_KC; i += K1_TM * K1_TN) {
-      const int r = i / K1_KC, kk = i % K1_KC;
-      a_s[r][kk] = (m0 + r < M && kk < kn)
-          ? static_cast<uint32_t>(a[static_cast<size_t>(m0 + r) * Kw + k0 + kk])
-          : 0u;
-    }
-    for (int i = tid; i < K1_TN * K1_KC; i += K1_TM * K1_TN) {
-      const int r = i / K1_KC, kk = i % K1_KC;
-      w_s[r][kk] = (n0 + r < N && kk < kn)
-          ? static_cast<uint32_t>(w[static_cast<size_t>(n0 + r) * Kw + k0 + kk])
-          : 0u;
+                       int n_pad, int bm, int kc, int ls) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ uint64_t bar;
+  uint32_t* w_s = smem;                     // [K1_BN][ls]
+  uint32_t* a_s = smem + K1_BN * ls;        // [bm][ls]
+  const int m0 = blockIdx.x * bm, n0 = blockIdx.y * K1_BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wrows = min(K1_BN, N - n0), arows = min(bm, M - m0);
+  const int units = bm / K1_VP;             // warp units of the block
+  const int n = n0 + lane;
+  const bool live = n < N;
+  const bool thr = c != nullptr && live;
+  const float c_n = thr ? c[n] : 0.f;
+  const bool f_n = thr && flip[n] != 0;
+  int dis[K1_BM / K1_VP / K1_WARPS][K1_VP] = {};
+  int pass = 0;
+  for (int k0 = 0; k0 < Kw; k0 += kc, ++pass) {
+    const int kn = min(kc, Kw - k0);
+    if (k0 > 0) __syncthreads();            // every warp is done with it
+    if constexpr (V == 4) {
+      if (warp == 0) {
+        if (lane == 0) {
+          if (k0 == 0) repro::mbar_init(&bar);
+          repro::mbar_expect_tx(&bar, (wrows + arows) * kn * 4);
+        }
+        __syncwarp();
+        for (int r = lane; r < wrows + arows; r += 32) {
+          const bool isw = r < wrows;
+          const int32_t* src =
+              isw ? w + static_cast<size_t>(n0 + r) * Kw + k0
+                  : a + static_cast<size_t>(m0 + r - wrows) * Kw + k0;
+          repro::bulk_copy(isw ? w_s + r * ls : a_s + (r - wrows) * ls, src,
+                           kn * 4, &bar);
+        }
+      }
+    } else {
+      for (int r = warp; r < wrows + arows; r += K1_WARPS) {
+        const bool isw = r < wrows;
+        const int32_t* src =
+            isw ? w + static_cast<size_t>(n0 + r) * Kw + k0
+                : a + static_cast<size_t>(m0 + r - wrows) * Kw + k0;
+        uint32_t* dst = isw ? w_s + r * ls : a_s + (r - wrows) * ls;
+        for (int k = lane; k < kn; k += 32) repro::cp_async4(dst + k, src + k);
+      }
+      repro::cp_async_commit();
+      repro::cp_async_wait_all();
     }
     __syncthreads();
-    for (int kk = 0; kk < kn; ++kk) acc += __popc(~(a_s[ty][kk] ^ w_s[tx][kk]));
-    __syncthreads();
+    if constexpr (V == 4) repro::mbar_wait(&bar, pass & 1);
+    const int nv = kn / V;
+#pragma unroll
+    for (int t = 0; t < K1_BM / K1_VP / K1_WARPS; ++t) {
+      const int pb = warp + K1_WARPS * t;
+      if (pb < units) {
+        int base[K1_VP];
+#pragma unroll
+        for (int j = 0; j < K1_VP; ++j) base[j] = (pb * K1_VP + j) * ls;
+        repro::xor_popc<V, 0, K1_VP>(w_s + lane * ls, a_s, base, 0, nv, 0,
+                                     nv, dis[t]);
+      }
+    }
   }
-  const int m = m0 + ty, n = n0 + tx;
-  if (m < M && n < N)
-    repro::store_output(out, static_cast<size_t>(m) * N + n, acc - n_pad, c,
-                        flip, n);
+  if (!live) return;
+  const int kp = 32 * Kw - n_pad;
+#pragma unroll
+  for (int t = 0; t < K1_BM / K1_VP / K1_WARPS; ++t) {
+    const int pb = warp + K1_WARPS * t;
+#pragma unroll
+    for (int j = 0; j < K1_VP; ++j) {
+      const int m = m0 + pb * K1_VP + j;
+      if (pb >= units || m >= M) continue;
+      const size_t idx = static_cast<size_t>(m) * N + n;
+      const int y = kp - dis[t][j];
+      if (c != nullptr)
+        static_cast<int8_t*>(out)[idx] =
+            static_cast<int8_t>((static_cast<float>(y) >= c_n) != f_n);
+      else
+        static_cast<int32_t*>(out)[idx] = y;
+    }
+  }
+}
+
+// K1's launch for (M, N, Kw), computed on the host. GEMV (gemv != 0): row
+// tile mt, lanes per weight row 2^lg, grid (weight-row blocks, row tiles);
+// tiled: bm activation rows, kc words of K a pass at row stride ls, grid
+// (m tiles, n tiles), smem bytes of dynamic shared memory.
+struct K1Plan {
+  int gemv, V, mt, lg, bm, kc, ls;
+  dim3 grid;
+  size_t smem;
+};
+
+K1Plan k1_plan(int M, int N, int Kw) {
+  K1Plan p = {};
+  p.V = Kw % 4 == 0 ? 4 : 1;
+  p.gemv = M <= K1_GEMV_M;
+  if (p.gemv) {
+    p.mt = M <= 1 ? 1 : M == 2 ? 2 : 4;
+    const int units = p.V == 4 ? Kw / 4 : Kw;
+    while ((1 << p.lg) < units && p.lg < 5) ++p.lg;
+    const int rows_per_block = K1_WARPS << (5 - p.lg);
+    p.grid = dim3((N + rows_per_block - 1) / rows_per_block,
+                  (M + p.mt - 1) / p.mt);
+    return p;
+  }
+  const long long nt = (N + K1_BN - 1) / K1_BN;
+  p.bm = K1_BM;
+  while (p.bm > 16 && nt * ((M + p.bm - 1) / p.bm) < WAVE) p.bm /= 2;
+  p.kc = Kw < K1_PASS ? Kw : K1_PASS;
+  p.ls = p.V == 4 ? (p.kc % 8 == 4 ? p.kc : p.kc + 4) : (p.kc | 1);
+  p.grid = dim3((M + p.bm - 1) / p.bm, static_cast<unsigned>(nt));
+  p.smem = sizeof(uint32_t) * static_cast<size_t>(K1_BN + p.bm) * p.ls;
+  return p;
 }
 
 constexpr int K2_THREADS = 128;               // 4 warps
 constexpr int K2_WARPS = K2_THREADS / 32;
 constexpr int K2_PASS = 256;   // most words of K staged per pass
-constexpr int WAVE = 132;      // blocks that fill the H100's SMs once
 
 // A block's tile: bn output channels (16 per m16 tile, at most 64) x bm
 // activation rows (8 per n8 tile, at most 64) over one cluster rank's
@@ -259,12 +453,28 @@ const char* repro_error_string(int code) {
 int xnor_matmul_vpu(const void* a, const void* w, const void* c,
                     const void* flip, void* out, int M, int N, int Kw,
                     int n_pad, void* stream) {
-  const dim3 grid((M + K1_TM - 1) / K1_TM, (N + K1_TN - 1) / K1_TN);
-  const dim3 block(K1_TN, K1_TM);
-  xnor_matmul_vpu_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(a), static_cast<const int32_t*>(w),
-      static_cast<const float*>(c), static_cast<const uint8_t*>(flip), out, M,
-      N, Kw, n_pad);
+  const K1Plan p = k1_plan(M, N, Kw);
+  if (p.grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* ap = static_cast<const int32_t*>(a);
+  const int32_t* wp = static_cast<const int32_t*>(w);
+  const float* cp = static_cast<const float*>(c);
+  const uint8_t* fp = static_cast<const uint8_t*>(flip);
+  if (!p.gemv)
+    return repro::launch_cluster(p.V == 4 ? xnor_matmul_vpu_kernel<4>
+                                          : xnor_matmul_vpu_kernel<1>,
+                                 p.grid, dim3(1), K1_THREADS, p.smem, stream,
+                                 ap, wp, cp, fp, out, M, N, Kw, n_pad, p.bm,
+                                 p.kc, p.ls);
+  const auto kernel =
+      p.V == 4 ? (p.mt == 1   ? xnor_gemv_kernel<1, 4>
+                  : p.mt == 2 ? xnor_gemv_kernel<2, 4>
+                              : xnor_gemv_kernel<4, 4>)
+               : (p.mt == 1   ? xnor_gemv_kernel<1, 1>
+                  : p.mt == 2 ? xnor_gemv_kernel<2, 1>
+                              : xnor_gemv_kernel<4, 1>);
+  kernel<<<p.grid, K1_THREADS, 0, s>>>(ap, wp, cp, fp, out, M, N, Kw, n_pad,
+                                       p.lg);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,7 +2,10 @@
 (``csrc/xnor_conv.cu``), and the per-position filter packing they read.
 
 * ``xnor_conv2d_vpu`` (K3) replaces ``repro/kernels/xnor_conv.py::
-  xnor_conv2d_vpu``: XNOR + ``__popc`` over a halo tile in shared memory.
+  xnor_conv2d_vpu``: XNOR + ``__popc`` on the CUDA cores over a halo tile
+  in shared memory, lane = output channel, 4 positions a thread, a
+  carry-save popcount of 16-byte units; ``vpu_plan`` mirrors the
+  launcher's choice of tile.
 * ``xnor_conv2d_mxu`` (K4) replaces ``repro/kernels/xnor_conv.py::
   xnor_conv2d_mxu``: the 1-bit tensor-core product ``mma.sync m16n8k256
   .b1 .and.popc`` between filter rows (on the MMA's rows) and the patch
@@ -26,8 +29,8 @@ import torch
 from repro_torch.core import bitpack
 from repro_torch.kernels import _build
 from repro_torch.kernels.xnor_matmul import (SMEM_PER_BLOCK, WAVE,
-                                             check_thresholds, check_words,
-                                             pow2_at_least)
+                                             aligned16, check_thresholds,
+                                             check_words, pow2_at_least)
 
 # Mirrors of csrc/xnor_conv.cu (K4): 4 warps a block, tiles of up to TH
 # output rows of TW columns (an n8 tile is one row), at most K4_NT n8
@@ -36,6 +39,89 @@ K4_THREADS = 128
 K4_NT = 4
 TH = 8
 TW = 8
+# ... and K3: 4 warps a block of K3_BO output channels (lane = channel),
+# VP positions a thread, split-L sums and an mbarrier in K3_STATIC bytes
+# of static shared memory.
+K3_THREADS = 128
+K3_BO = 32
+VP = 4
+K3_STATIC = 4 * (K3_THREADS // 32 // 2) * 32 * VP + 8
+
+
+def k3_stride(ll: int, vec: int) -> int:
+    """Word stride of a staged K3 filter row of ``ll`` words
+    (``csrc/xnor_conv.cu::k3_stride``): 16-byte units, ``ll`` where ll = 4
+    (mod 8), else ll + 4; 4-byte words, odd."""
+    if vec == 4:
+        return ll if ll % 8 == 4 else ll + 4
+    return ll | 1
+
+
+@dataclass(frozen=True)
+class VpuConvPlan:
+    """K3's launch: a block takes ``th`` x TW output positions and K3_BO
+    channels of one image, stages its filter rows at ``ls`` words and the
+    halo (``sh`` x ``sw`` pixels of Cw words); ``vec`` words per
+    shared-memory load; ``smem`` bytes of dynamic shared memory."""
+    n: int
+    ho: int
+    wo: int
+    o: int
+    ll: int
+    vec: int
+    th: int
+    ls: int
+    sh: int
+    sw: int
+    smem: int
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        """(tiles, channel groups, images)."""
+        return (-(-self.ho // self.th) * -(-self.wo // TW),
+                -(-self.o // K3_BO), self.n)
+
+    @property
+    def blocks(self) -> int:
+        gx, gy, gz = self.grid
+        return gx * gy * gz
+
+    @property
+    def units(self) -> int:
+        """Warp units of a block: 32 channels x VP positions."""
+        return self.th * TW // VP
+
+    @property
+    def ks(self) -> int:
+        """Warps that split L for one unit (``run_units``)."""
+        nv, ks = self.ll // self.vec, 1
+        while 2 * ks * self.units <= K3_THREADS // 32 and 2 * ks <= nv:
+            ks *= 2
+        return ks
+
+
+def vpu_plan(n: int, ho: int, wo: int, cw: int, o: int, fh: int, fw: int,
+             stride: int) -> VpuConvPlan:
+    """The launcher's plan (``csrc/xnor_conv.cu::vpu_plan``): th from
+    min(TH, Ho rounded up to a power of two), halved until the blocks make
+    a wave, then until the block's shared memory fits. Raises where th = 1
+    does not fit, as the launcher refuses the launch."""
+    ll, vec = fh * fw * cw, 4 if cw % 4 == 0 else 1
+    ls = k3_stride(ll, vec)
+    per_tile_row = n * -(-wo // TW) * -(-o // K3_BO)
+    th = pow2_at_least(ho, 1, TH)
+    while th > 1 and per_tile_row * -(-ho // th) < WAVE:
+        th //= 2
+    while True:
+        sh, sw = (th - 1) * stride + fh, (TW - 1) * stride + fw
+        smem = 4 * (K3_BO * ls + sh * sw * cw)
+        if smem + K3_STATIC <= SMEM_PER_BLOCK:
+            break
+        if th == 1:
+            raise ValueError(f"K3 cannot fit a block for Cw={cw}, "
+                             f"{fh}x{fw}/s{stride}")
+        th //= 2
+    return VpuConvPlan(n, ho, wo, o, ll, vec, th, ls, sh, sw, smem)
 
 
 @dataclass(frozen=True)
@@ -171,6 +257,8 @@ def _launch(name: str, a_words, w_words, k, fh, fw, stride, pad, thr_c,
         raise ValueError(f"unsupported conv geometry: N={n}, output "
                          f"{ho}x{wo}")
     check_thresholds(thr_c, thr_flip, o, a_words.device)
+    if name == "xnor_conv2d_vpu":
+        a_words, w_words = aligned16(a_words), aligned16(w_words)
     fused = thr_c is not None
     out = torch.empty((n, ho, wo, o),
                       dtype=torch.int8 if fused else torch.int32,
@@ -202,7 +290,10 @@ def xnor_conv2d_mxu(a_words: torch.Tensor, w_words: torch.Tensor, *, k: int,
                     pad: tuple[int, int] = (1, 1),
                     thr_c: torch.Tensor | None = None,
                     thr_flip: torch.Tensor | None = None) -> torch.Tensor:
-    """K4: K3's contract via ±1 int8 unpack + tensor-core dot."""
+    """K4: K3's contract on the tensor cores: ``mma.sync m16n8k256 .b1
+    .and.popc`` on the packed words as they lie (no unpack), output
+    channels on the MMA's rows, 8 positions of a tile row on its
+    columns."""
     out = _launch("xnor_conv2d_mxu", a_words, w_words, k, fh, fw, stride,
                   pad, thr_c, thr_flip)
     xnor_conv2d_mxu.launches += 1

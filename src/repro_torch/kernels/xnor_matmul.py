@@ -2,7 +2,11 @@
 (``csrc/xnor_matmul.cu``) and K6 (``csrc/binary_weight_matmul.cu``).
 
 * ``xnor_matmul_vpu`` (K1) replaces ``repro/kernels/xnor_matmul.py::
-  xnor_matmul_vpu``: XNOR + ``__popc`` on the CUDA cores.
+  xnor_matmul_vpu``: XNOR + ``__popc`` on the CUDA cores, a carry-save
+  popcount of 16-byte units; a GEMV straight from device memory for
+  decode-shaped M (at most ``K1_GEMV_M`` rows), else shared-memory tiles
+  with a weight row per lane and 4 activation rows a thread; ``vpu_plan``
+  mirrors the launcher's choice.
 * ``xnor_matmul_mxu`` (K2) replaces ``repro/kernels/xnor_matmul.py::
   xnor_matmul_mxu``: the 1-bit tensor-core product ``mma.sync m16n8k256
   .b1 .and.popc`` on the packed words (output channels on the MMA's rows,
@@ -44,6 +48,18 @@ K2_PASS = 256
 WAVE = 132
 MAX_CLUSTER = 8
 SMEM_PER_BLOCK = 232448
+
+
+# ... and K1 (csrc/xnor_matmul.cu): 4 warps a block in both regimes; the
+# GEMV serves M <= K1_GEMV_M; tiles of K1_BN weight rows x at most K1_BM
+# activation rows, K1_VP of them a thread, at most K1_PASS words of K a
+# pass.
+K1_THREADS = 128
+K1_GEMV_M = 16
+K1_BN = 32
+K1_VP = 4
+K1_BM = 64
+K1_PASS = 256
 
 
 def pow2_at_least(x: int, lo: int, hi: int) -> int:
@@ -122,6 +138,81 @@ def mxu_plan(m: int, n: int, kw: int) -> MxuPlan:
     return MxuPlan(m, n, kw, bn, bm, cs, pass_words, smem)
 
 
+@dataclass(frozen=True)
+class VpuPlan:
+    """K1's launch for (M, N, Kw). ``gemv``: row tile ``mt`` (1, 2 or 4),
+    2^``lg`` lanes per weight row, grid (weight-row blocks, row tiles).
+    Else tiled: ``bm`` activation rows x K1_BN weight rows a block, ``kc``
+    words of K a pass at row stride ``ls``, grid (m tiles, n tiles).
+    ``vec``: words per load, 4 where Kw % 4 == 0 (the wrapper copies an
+    operand that does not start on 16 bytes)."""
+    m: int
+    n: int
+    kw: int
+    gemv: bool
+    vec: int
+    mt: int = 0
+    lg: int = 0
+    bm: int = 0
+    kc: int = 0
+    ls: int = 0
+    smem: int = 0
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        if self.gemv:
+            rows = (K1_THREADS // 32) << (5 - self.lg)
+            return -(-self.n // rows), -(-self.m // self.mt)
+        return -(-self.m // self.bm), -(-self.n // K1_BN)
+
+    @property
+    def blocks(self) -> int:
+        gx, gy = self.grid
+        return gx * gy
+
+    def gemv_lane(self, bx: int, by: int, warp: int, lane: int):
+        """(weight row, activation rows, units of K read, rows stored) of
+        one GEMV lane: units j0, j0 + 2^lg, ... below Kw / vec; it stores
+        the rows r with r mod 2^lg == j0 (of those below M, where its
+        weight row is below N)."""
+        j0 = lane & ((1 << self.lg) - 1)
+        n = ((bx * (K1_THREADS // 32) + warp) << (5 - self.lg)) \
+            + (lane >> self.lg)
+        rows = [by * self.mt + r for r in range(self.mt)]
+        units = list(range(j0, self.kw // self.vec, 1 << self.lg))
+        stored = [m for r, m in enumerate(rows)
+                  if r % (1 << self.lg) == j0 and m < self.m and n < self.n]
+        return n, rows, units, stored
+
+    def passes(self) -> list[tuple[int, int]]:
+        """Tiled: (first word, words) of every pass over K."""
+        return [(k0, min(self.kc, self.kw - k0))
+                for k0 in range(0, self.kw, self.kc)]
+
+
+def vpu_plan(m: int, n: int, kw: int) -> VpuPlan:
+    """The launcher's plan (``csrc/xnor_matmul.cu::k1_plan``): the GEMV
+    for M <= K1_GEMV_M (2^lg the least power of two >= the row's units,
+    at most 32), else tiles with bm halved from K1_BM (to 16 at least)
+    until the blocks make a wave."""
+    vec = 4 if kw % 4 == 0 else 1
+    if m <= K1_GEMV_M:
+        units = kw // vec
+        lg = 0
+        while (1 << lg) < units and lg < 5:
+            lg += 1
+        return VpuPlan(m, n, kw, True, vec,
+                       mt=1 if m <= 1 else 2 if m == 2 else 4, lg=lg)
+    nt = -(-n // K1_BN)
+    bm = K1_BM
+    while bm > 16 and nt * -(-m // bm) < WAVE:
+        bm //= 2
+    kc = min(kw, K1_PASS)
+    ls = (kc if kc % 8 == 4 else kc + 4) if vec == 4 else kc | 1
+    return VpuPlan(m, n, kw, False, vec, bm=bm, kc=kc, ls=ls,
+                   smem=4 * (K1_BN + bm) * ls)
+
+
 # Mirrors of csrc/binary_weight_matmul.cu (K6): a block is one warp of
 # BW_NW output columns; a lane takes BW_KV consecutive K elements of each
 # 128-element step.
@@ -189,6 +280,12 @@ def check_words(t: torch.Tensor, ndim: int, name: str) -> None:
         raise ValueError(f"{name} is empty")
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its storage does not start on 16
+    bytes: K1 and K3 read their operands in 16-byte units."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(name: str, a_words, w_words, k, thr_c, thr_flip):
     check_words(a_words, 2, "a_words")
     check_words(w_words, 2, "w_words")
@@ -202,6 +299,8 @@ def _launch(name: str, a_words, w_words, k, thr_c, thr_flip):
         raise ValueError(f"k={k} needs {bitpack.packed_len(k)} words, "
                          f"got {kw}")
     check_thresholds(thr_c, thr_flip, n, a_words.device)
+    if name == "xnor_matmul_vpu":
+        a_words, w_words = aligned16(a_words), aligned16(w_words)
     fused = thr_c is not None
     out = torch.empty((m, n), dtype=torch.int8 if fused else torch.int32,
                       device=a_words.device)
@@ -226,7 +325,9 @@ def xnor_matmul_vpu(a_words: torch.Tensor, w_words: torch.Tensor, *, k: int,
 def xnor_matmul_mxu(a_words: torch.Tensor, w_words: torch.Tensor, *, k: int,
                     thr_c: torch.Tensor | None = None,
                     thr_flip: torch.Tensor | None = None) -> torch.Tensor:
-    """K2: K1's contract via ±1 int8 unpack + tensor-core dot."""
+    """K2: K1's contract on the tensor cores: ``mma.sync m16n8k256 .b1
+    .and.popc`` on the packed words as they lie (no unpack), output
+    channels on the MMA's rows, activation rows on its columns."""
     out = _launch("xnor_matmul_mxu", a_words, w_words, k, thr_c, thr_flip)
     xnor_matmul_mxu.launches += 1
     return out

@@ -174,6 +174,47 @@ def test_pick_keeps_the_heuristic_choice_within_noise():
                                                                at.TIE_REL)
 
 
+# CONV-3/4's K5-mxu tiles as an H100 timed them at batch 4 (ms, the
+# tuning phase of chip_smoke.py): (1, 8) lies 6% above the fastest, (2,
+# 4), at the edge of the band of two TIE_REL spreads
+CONV34_MXU_MS = {(1, 1): 0.0868, (1, 2): 0.0649, (1, 4): 0.0556,
+                 (1, 8): 0.0516, (2, 1): 0.0649, (2, 2): 0.0548,
+                 (2, 4): 0.0485, (2, 8): 0.0531, (4, 1): 0.0556,
+                 (4, 2): 0.0486, (4, 4): 0.0531, (4, 8): 0.0557,
+                 (8, 1): 0.0516, (8, 2): 0.0532, (8, 4): 0.0558,
+                 (8, 8): 0.0790}
+
+
+def test_tile_race_order_puts_larger_squarer_tiles_first():
+    tiles = tuple(CONV34_MXU_MS)
+    order = at.tile_race_order(tiles, (1, 2))
+    assert order[0] == (1, 2) and sorted(order) == sorted(tiles)
+    areas = [th * tw for th, tw in order[1:]]
+    assert areas == sorted(areas, reverse=True)
+    assert [t for t in order if t[0] * t[1] == 8] == [(2, 4), (4, 2), (1, 8),
+                                                      (8, 1)]
+    assert at.tile_race_order(tiles, (9, 9))[0] == (8, 8)
+
+
+def test_a_tile_at_the_band_edge_does_not_split_two_tunings():
+    """With (1, 8) just inside or just beyond the noise band of the fastest
+    tile, the race order of ``tile_candidates`` picks (1, 8) or (2, 4) (two
+    tunings of one card disagreed so); ``tile_race_order`` picks (2, 4)
+    either way."""
+    def pick(order, t18):
+        ms = dict(CONV34_MXU_MS)
+        ms[(1, 8)] = t18
+        return at._pick({t: (ms[t], at.TIE_REL * ms[t]) for t in order})
+
+    edge = 0.0485 * (1 + at.TIE_REL) / (1 - at.TIE_REL)
+    tiles = tuple(CONV34_MXU_MS)
+    old = at._first(tiles, (1, 2))
+    assert [pick(old, edge * f) for f in (0.999, 1.001)] == [(1, 8), (2, 4)]
+    new = at.tile_race_order(tiles, (1, 2))
+    assert {pick(new, edge * f) for f in (0.99, 0.999, 1.001, 1.01)} == {
+        (2, 4)}
+
+
 def test_tuned_plan_bit_exact(packed, tuned, images):
     plan, _ = tuned
     want = bcnn.forward_packed(packed, images, path="xla")
