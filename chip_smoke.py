@@ -8,7 +8,7 @@ Phases, each fatal on failure (nothing is caught):
 1. Print the card's name and power limit, build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` and print the build time and nvcc's
    register / shared-memory report (spelt out per kernel for K2, K4, K5
-   vpu and K6),
+   vpu and K6, and per hd bucket and dtype for K7 simt),
    then run the tensor-core rate probe (``kernels/mma_probe.py``: 1-bit
    ``.xor.popc`` and ``.and.popc``, int8, and int8 with a register
    unpack) and print its bit-MAC rates beside the SM clock and power
@@ -71,18 +71,26 @@ Phases, each fatal on failure (nothing is caught):
 
 Phase 2 also holds K7 against its plain version at the dense LM's
 attention shape (B, Hq, Hkv, hd) = (1, 32, 8, 128), causal, S in {128,
-1000, 4096}, and at the ragged extras (2, 4, 2, 64) at S = 256, (1, 2, 1,
-64) at S = 200, both causal settings, and (1, 4, 2, 96) at S = 300, in
-float32 and bfloat16 (tolerances ``FLASH_TOL``), each in the variant
-``pick_variant`` chooses (printed from the launch counters): "tc"
-(``flash_attention_tc``, bf16 at hd 64 / 128) on contiguous tensors and
-on the strided head-major views the model hands over, "simt"
-(``flash_attention``) on everything else. It times each variant at S =
-4096 in the dtype it serves (tc bf16, simt float32) against one
+1000, 4096}, at the same heads with hd 32, 96, 112 and 192 at S = 4096,
+and at the ragged extras (2, 4, 2, 64) at S = 256, (1, 2, 1, 64) at S =
+200, both causal settings, (1, 4, 2, hd) at S = 300 for hd 32, 96, 112
+and 192, (1, 2, 1, 256) at S = 200 non-causal and (1, 2, 2, 33) at S = 65
+(rows the wrapper pads to 16 bytes), in float32 and bfloat16 (tolerances
+``FLASH_TOL``), each in the variant ``pick_variant`` chooses (printed
+from the launch counters): "tc" (``flash_attention_tc``, bf16 at hd 64 /
+128) on contiguous tensors and on the strided head-major views the model
+hands over, "simt" (``flash_attention``) on everything else. Before them
+it prints the "simt" plan of every hd bucket from the card
+(``kfa.simt_plan``: blocks an SM by the occupancy API, registers and
+local bytes a thread, shared bytes, KV tile) and requires 2 blocks an SM
+at hd <= 128 in float32; the build phase prints ptxas's line of every
+``flash_simt_kernel`` instantiation. It times every row against one
 ``scaled_dot_product_attention`` call on the same inputs (a yardstick the
-port never calls), and runs "tc" at the reference's ``prefill_32k``
-length (S = 32768, causal, bf16), which the plain version cannot hold
-(137 GB of scores), against SDPA's output at the bf16 tolerances.
+port never calls); the kernels line takes each variant at S = 4096 in the
+dtype it serves there (tc bf16) and simt at ``FLASH_SIMT_PATH``. Then it
+runs "tc" at the reference's ``prefill_32k`` length (S = 32768, causal,
+bf16), which the plain version cannot hold (137 GB of scores), against
+SDPA's output at the bf16 tolerances.
 
 Phase 2 also holds K1/K2 bit-exact against their plain version at the
 LM's mode-"xnor" shapes (M = 4 per decode step and 16 for the probe,
@@ -100,6 +108,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -218,13 +227,19 @@ LM_MAX_NEW = 16
 LM_SWAP_AT = 20          # engine steps before the mid-run hot-swap
 # K7 at the dense LM's attention (Qwen3-8B: 32 query heads over 8 KV heads,
 # hd 128): (B, Hq, Hkv, hd, S, causal); the last S is the main path's
-# prefill. Then ragged extras, both causal settings, and an hd that sends
-# bf16 to the CUDA-core variant.
+# prefill. The same heads at the simt widths of the zoo's next models (hd
+# 96, 112 and 192, where bf16 runs simt too) and at hd 32, which runs in
+# simt's 64 bucket. Then ragged extras, both causal settings, at those
+# widths; the largest bucket (hd 256, one block an SM in float32); and hd
+# 33, whose rows the simt wrapper pads to whole 16-byte units.
 FLASH_PATH_S = 4096
+FLASH_WIDTHS = (32, 96, 112, 192)
 FLASH_CASES = [(1, 32, 8, 128, s, True) for s in (128, 1000, FLASH_PATH_S)]
+FLASH_CASES += [(1, 32, 8, hd, FLASH_PATH_S, True) for hd in FLASH_WIDTHS]
 FLASH_CASES += [(2, 4, 2, 64, 256, c) for c in (True, False)]
 FLASH_CASES += [(1, 2, 1, 64, 200, c) for c in (False, True)]
-FLASH_CASES += [(1, 4, 2, 96, 300, True)]
+FLASH_CASES += [(1, 4, 2, hd, 300, True) for hd in FLASH_WIDTHS]
+FLASH_CASES += [(1, 2, 1, 256, 200, False), (1, 2, 2, 33, 65, True)]
 # the shape K7 simt runs on the main path: the two-layer float32 cut's
 # prefill, card vs CPU (DENSE_CPU_TOKENS), timed for the kernels line
 FLASH_SIMT_PATH = (2, 32, 8, 128, 256, True)
@@ -587,6 +602,7 @@ def kernel_phase(bound: Bound) -> dict:
 
     pair_phase(g, dev, bound, stats)
     bw_phase(g, dev, bound, stats["binary_weight_matmul"])
+    simt_plan_phase()
     flash_phase(g, dev, stats)
 
     for name, s in stats.items():
@@ -840,18 +856,43 @@ def flash_check(got, want, dt, what: str) -> tuple[float, float]:
     return err, share
 
 
+def simt_plan_phase() -> None:
+    """The K7 "simt" plan of every hd bucket in both dtypes, read from
+    the card (``kfa.simt_plan``) and held against its Python mirror; 2
+    blocks an SM are required at hd <= 128 in float32."""
+    from repro_torch.kernels import flash_attention as kfa
+    for dt in (torch.float32, torch.bfloat16):
+        for hd in kfa.SIMT_HEAD_DIMS:
+            p = kfa.simt_plan(hd, dt)
+            check(p["smem"] == kfa.simt_smem_bytes(hd, dt)
+                  and p["kv_tile"] == kfa.simt_kv_tile(hd, dt)
+                  and p["bucket"] == hd,
+                  f"K7 simt plan {p} at hd {hd} {dt} disagrees with "
+                  f"its Python mirror")
+            print(f"K7 simt plan at hd {hd}, {str(dt)[6:]}: "
+                  f"{p['blocks_per_sm']} blocks an SM (occupancy API), "
+                  f"{p['registers']} registers, {p['local_bytes']} local "
+                  f"(spill) bytes a thread, {p['smem']} B shared, "
+                  f"{p['kv_tile']}-key tiles")
+            if dt == torch.float32 and hd <= 128:
+                check(p["blocks_per_sm"] >= 2,
+                      f"K7 simt holds {p['blocks_per_sm']} block(s) an SM "
+                      f"at hd {hd} float32, not 2")
+
+
 def flash_phase(g, dev, stats: dict) -> None:
     """K7 against its plain version on every ``FLASH_CASES`` row, float32
     and bfloat16, at ``FLASH_TOL``, in the variant ``pick_variant``
     chooses, read back from the launch counters. A "tc" row is held twice:
     on contiguous tensors, and on head-major views ``x.transpose(1, 2)``
     of (B, S, H, hd) tensors, the layout ``gqa_forward`` hands over, which
-    the kernel's tensor maps read in place. Times the (1, 32, 8, 128) rows
-    (on the views where the variant is "tc") beside the plain version and
-    SDPA on the same inputs; the kernels line takes each variant's call at
-    S = ``FLASH_PATH_S`` in the dtype it serves there (tc: bf16, simt:
-    float32). Then "tc" at ``FLASH_LONG`` against SDPA's output, at the
-    same tolerances."""
+    the kernel's tensor maps read in place. Times every row (on the views
+    where the variant is "tc") beside the plain version and SDPA on the
+    same inputs; the kernels line takes "tc" at S = ``FLASH_PATH_S`` in
+    bf16 and "simt" at ``FLASH_SIMT_PATH`` in float32. Then "tc" at
+    ``FLASH_LONG`` against SDPA's output, at the same tolerances. Uses no
+    more of the package than the wrapper, its launch counters and the
+    plain version, so it runs on an older checkout's ``src`` too."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -888,7 +929,7 @@ def flash_phase(g, dev, stats: dict) -> None:
                         f"counters), vs plain max |err| {err:.3g}"
                         + (f", {share:.5f} beyond one ulp"
                            if dt == torch.bfloat16 else ""))
-                if hq != 32 or layout != layouts[-1]:
+                if layout != layouts[-1]:
                     print(line)
                     del got, want, q, k, v
                     continue
@@ -956,6 +997,12 @@ def build_phase() -> None:
             entry = line.split("'")[1] if "'" in line else ""
         if "Used" in line or "spill" in line or "error" in line:
             print(f"  nvcc: {line.strip()}")
+            simt = re.search(r"flash_simt_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                             entry)
+            if simt:
+                print(f"  nvcc flash_simt_kernel<"
+                      f"{'float' if simt[1] == 'f' else 'bf16'}, hd "
+                      f"{simt[2]}>: {line.strip()}")
             for kernel in ("xnor_matmul_mxu_kernel", "xnor_conv2d_mxu_kernel",
                            "pair_vpu_kernel", "binary_weight_matmul_kernel",
                            "xnor_gemv_kernel", "xnor_matmul_vpu_kernel",

@@ -51,9 +51,11 @@ SIGNATURES = {
     "flash_attention": _FLASH_ARGS,
     "flash_attention_tc": _FLASH_TC_ARGS,
 }
-# measurement kernels that no path launches: form, blocks, iters, sink,
-# stream (csrc/mma_probe.cu)
-PROBES = {"mma_rate_probe": [_I] * 3 + [_P] * 2}
+# measurement entry points that no path calls: the rate probe (form,
+# blocks, iters, sink, stream; csrc/mma_probe.cu) and the K7 "simt" plan
+# query (hd, bf16, int[6]; csrc/flash_attention.cu)
+PROBES = {"mma_rate_probe": [_I] * 3 + [_P] * 2,
+          "flash_attention_simt_plan": [_I, _I, _P]}
 
 
 def nvcc_path() -> str:

@@ -143,7 +143,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
                                       "binary_weight_matmul",
                                       "flash_attention",
                                       "flash_attention_tc"}
-    assert set(_build.PROBES) == {"mma_rate_probe"}
+    assert set(_build.PROBES) == {"mma_rate_probe",
+                                  "flash_attention_simt_plan"}
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
         "xnor_matmul.cu", "xnor_conv.cu", "xnor_conv_fused.cu",
         "binary_weight_matmul.cu", "flash_attention.cu",
