@@ -35,14 +35,31 @@ Phases, each fatal on failure (nothing is caught):
 3. Serve 16 requests through a 4-slot ``BCNNEngine`` on the card, on path
    "mxu" and again on "vpu", unfused and then with the conv pairs fused
    (K5), with launch counters zeroed just before and read just after each
-   run; hold the served logits, every layer's and fused pair's output
-   (each fed the same input) and CONV-1's bits against the same port on
-   the CPU, and profile each served forward.
+   run; every step is one CUDA-graph replay, and each replay counts its
+   launches. Hold the served logits, every layer's and fused pair's
+   output (each fed the same input) and CONV-1's bits against the same
+   port on the CPU. Hold the replayed logits bitwise equal to the eager
+   card forward, over an occupancy sweep 1..4 on one graph
+   (``step_cache_size`` 1), and across ``swap_packed`` to a second seed's
+   net mid-run (queued requests get the new weights: bitwise equal to its
+   eager card forward, allclose to its CPU port; no new capture; every
+   weight keeps its storage) and back. Profile each forward eager and
+   replayed: wall, device time, idle share, launches.
 4. Tune the plan on the card twice (``kernels/autotune.py``, device
    time at batch 4), require the two plans to agree and every candidate
    to be bit-exact, export the plan in an artifact, reload it as the
    cached plan and serve with it against the CPU port.
-5. The XNOR LM at the full ``configs/xnor_lm_tiny.py::CONFIG``: hold the
+5. The replica fleet (``serve/router.py``, threaded, the tuned plan shared
+   by every replica): 512 requests of mixed online + bulk Poisson traffic
+   (``PRIORITY_MIX``) through 2 replicas with a rolling swap mid-drive,
+   then through 1 and 2 replicas at the same rate and saturated, each
+   with zero drops, a closed ledger per class, one capture a replica, the
+   path's launches on every step, every result bitwise equal to its
+   stamped epoch's eager card forward and allclose to its CPU port,
+   p50/p99 per class and img/s printed; then an autoscaled fleet through
+   1 -> 2 -> 1 replicas under a bulk burst, replica 1 captured while
+   replica 0 serves. Every wait is bounded.
+6. The XNOR LM at the full ``configs/xnor_lm_tiny.py::CONFIG``: hold the
    probe ``forward_packed`` logits of modes "bw" and "xnor" bitwise equal
    on the card; serve 16 requests through 4 slots in mode "bw" (K6) and in
    mode "xnor" on "vpu" (K1) and "mxu" (K2), each with launch counters
@@ -52,7 +69,7 @@ Phases, each fatal on failure (nothing is caught):
    the decode GEMM modes twice on one decode step at 4 slots
    (``autotune_lm_mode``) and require the two to agree; profile one
    decode step.
-6. The dense LM zoo at Qwen3-8B's full width (``configs/qwen3_8b.py``):
+7. The dense LM zoo at Qwen3-8B's full width (``configs/qwen3_8b.py``):
    a two-layer float32 cut on the card against the same port on the CPU
    (``prefill`` and ``forward_train`` logits, 2 K7 launches per forward,
    all of them the CUDA-core variant "simt"), and against its own
@@ -221,6 +238,14 @@ BW_CALLS = {(128, 128): 16, (128, 256): 4, (256, 128): 4}
 # bf16 ulp of the rounded output)
 BW_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
           torch.bfloat16: dict(rtol=2 ** -7, atol=1e-2)}
+# the replica fleet (phase 5): requests of each drive, the Poisson rate
+# of the mixed drives, a rate that saturates the fleet, the autoscaled
+# run's bulk burst, and the bound on every wait
+FLEET_REQUESTS = 512
+FLEET_RATE_HZ = 2000.0
+FLEET_SATURATE_HZ = 1e6
+FLEET_BURST = 4 * FLEET_REQUESTS
+FLEET_TIMEOUT_S = 120.0
 LM_REQUESTS = 16
 LM_PROMPT = 8
 LM_MAX_NEW = 16
@@ -259,7 +284,7 @@ FLASH_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
              torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 FLASH_ULP_FLOOR = 0.25
 FLASH_ULP_SHARE = 0.005
-# the dense LM (phase 6)
+# the dense LM (phase 7)
 DENSE_ARCH = "qwen3-8b"
 DENSE_CPU_TOKENS = (2, 256)      # the two-layer float32 cut, card vs CPU
 DENSE_DECODE_PROMPT = 64         # prefill vs token-by-token decode
@@ -372,30 +397,39 @@ def kernel_us(fn, name: str, n: int = 20) -> str:
     return f"{sum(r[0] for r in rows) * 1e3:.3f} µs"
 
 
-def profile_forward(fwd, x, n: int = 20) -> None:
+def profile_forward(fwd, x, n: int = 20, stream=None) -> dict:
     """Where one forward's time goes: host wall time per forward, device
     time per forward (``device_ms``), the device's idle share = 1 -
-    device / wall, and the kernels by device time (torch.profiler)."""
-    fwd(x)
+    device / wall, and the kernels by device time (torch.profiler), all
+    on ``stream`` (default the current one). Returns wall and device ms,
+    the idle share and the profiler's launches per forward (None when it
+    recorded no device kernels)."""
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
+    with torch.cuda.stream(stream or torch.cuda.current_stream()):
         fwd(x)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / n * 1e3
-    busy_ms = device_ms(lambda: fwd(x), n=3)       # ~120 launches each
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fwd(x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / n * 1e3
+        busy_ms = device_ms(lambda: fwd(x), n=3)       # ~120 launches each
+        rows = kernel_rows(lambda: fwd(x), n)
     print(f"  forward wall {wall_ms:.4f} ms, device {busy_ms:.4f} ms, "
           f"device idle share {1 - busy_ms / wall_ms:.3f}")
-    rows = kernel_rows(lambda: fwd(x), n)
+    out = {"wall_ms": wall_ms, "device_ms": busy_ms,
+           "idle": 1 - busy_ms / wall_ms, "launches": None}
     if not rows:
         print("  per-kernel breakdown: not measured (the profiler recorded "
               "no device kernels)")
-        return
+        return out
+    out["launches"] = sum(r[1] for r in rows)
     print(f"  per-kernel breakdown (torch.profiler): "
-          f"{sum(r[1] for r in rows)} launches, "
+          f"{out['launches']} launches, "
           f"{sum(r[0] for r in rows):.4f} ms of kernels per forward")
     for t, count, key in rows[:10]:
         print(f"    {t:.4f} ms  x{count}  {key[:90]}")
+    return out
 
 
 def rand_bits(g, shape, device):
@@ -1048,7 +1082,7 @@ def cpu_reference():
 def serve(eng, x_np, logits_cpu, tag: str):
     """Serve ``x_np`` through ``eng`` (warmed up by the caller); hold the
     logits against the CPU port (allclose 1e-5, equal argmax). Returns
-    the number of forwards."""
+    the number of forwards and the served logits."""
     steps0 = eng.steps_executed
     t0 = time.perf_counter()
     rids = [eng.submit(img) for img in x_np]
@@ -1068,7 +1102,101 @@ def serve(eng, x_np, logits_cpu, tag: str):
           f"in {dt * 1e3:.1f} ms: latency p50 {st['p50'] * 1e3:.3f} ms, "
           f"p99 {st['p99'] * 1e3:.3f} ms, {st['throughput']:.1f} img/s; "
           f"logits max |gpu - cpu| {np.abs(logits - logits_cpu).max():.3g}")
-    return eng.steps_executed - steps0
+    return eng.steps_executed - steps0, logits
+
+
+def eager_logits(fwd, x_np) -> np.ndarray:
+    """The card's eager ``forward_packed`` of ``fwd``'s current weights
+    and plan on ``x_np``, at the served batch of ``N_SLOTS`` images."""
+    from repro_torch.core import bcnn
+    torch.cuda.synchronize()
+    outs = [bcnn.forward_packed(
+        fwd.packed, torch.from_numpy(x_np[i:i + N_SLOTS]).cuda(),
+        plan=fwd.plan).cpu().numpy() for i in range(0, len(x_np), N_SLOTS)]
+    return np.concatenate(outs)
+
+
+def graph_checks(eng, tag, x_np, served, packed_a, packed_b,
+                 logits_cpu_b) -> None:
+    """The captured step of ``eng`` (warmed, serving ``packed_a``):
+    served logits bitwise equal to the eager card forward, an occupancy
+    sweep 1..N_SLOTS on one graph, a hot-swap to ``packed_b`` mid-run
+    (queued requests get the new weights, bitwise equal to its eager card
+    forward and allclose to the CPU port; no new capture; every weight
+    keeps its storage), then a swap back to ``packed_a``."""
+    from repro_torch.core import bcnn
+    fwd = eng.forward
+    ptrs = [t.data_ptr() for t in bcnn.split_packed(fwd.packed)[0]]
+    eager_a = eager_logits(fwd, x_np)
+    check(np.array_equal(served, eager_a), f"[{tag}] replayed logits differ "
+          f"from the eager card forward: max "
+          f"{np.abs(served - eager_a).max():.3g}")
+    for k in range(1, N_SLOTS + 1):
+        rids = [eng.submit(img) for img in x_np[:k]]
+        out = eng.run()
+        check(np.array_equal(np.stack([out[r] for r in rids]), eager_a[:k]),
+              f"[{tag}] occupancy {k}: replayed logits differ from eager")
+    check(eng.step_cache_size == 1, f"[{tag}] step_cache_size "
+          f"{eng.step_cache_size} after the occupancy sweep")
+    rids = [eng.submit(img) for img in x_np]
+    n_old = 2 * N_SLOTS
+    first = eng.run(max_steps=2)
+    drained = eng.swap_packed(packed_b)
+    rest = eng.run()
+    check(drained == {} and sorted(first) == rids[:n_old]
+          and sorted(rest) == rids[n_old:],
+          f"[{tag}] swap: requests lost or served out of order")
+    eager_b = eager_logits(fwd, x_np)
+    got_a = np.stack([first[r] for r in rids[:n_old]])
+    got_b = np.stack([rest[r] for r in rids[n_old:]])
+    check(np.array_equal(got_a, eager_a[:n_old]),
+          f"[{tag}] swap: pre-swap logits differ from eager")
+    check(np.array_equal(got_b, eager_b[n_old:]),
+          f"[{tag}] swap: post-swap replayed logits differ from the eager "
+          f"card forward of the new net")
+    check(np.allclose(eager_b, logits_cpu_b, rtol=1e-5, atol=1e-5)
+          and (eager_b.argmax(1) == logits_cpu_b.argmax(1)).all(),
+          f"[{tag}] swap: new net's logits differ from the CPU port: max "
+          f"{np.abs(eager_b - logits_cpu_b).max():.3g}")
+    check(not np.array_equal(eager_a, eager_b),
+          f"[{tag}] swap changed no logit")
+    check(eng.step_cache_size == 1 and ptrs == [
+        t.data_ptr() for t in bcnn.split_packed(fwd.packed)[0]],
+        f"[{tag}] swap: a new capture or a weight changed storage")
+    eng.swap_packed(packed_a)
+    rids = [eng.submit(img) for img in x_np]
+    out = eng.run()
+    check(np.array_equal(np.stack([out[r] for r in rids]), eager_a)
+          and eng.step_cache_size == 1,
+          f"[{tag}] swap back: logits differ from the first net's")
+    print(f"[{tag}] one CUDA graph (step_cache_size {eng.step_cache_size}) "
+          f"over occupancies 1..{N_SLOTS} and two swaps: replayed logits "
+          f"bitwise equal to the eager card forward before and after "
+          f"swap_packed, the new net's allclose to the CPU port (max "
+          f"{np.abs(eager_b - logits_cpu_b).max():.3g}); all {len(ptrs)} "
+          f"weight tensors kept their storage")
+
+
+def bcnn_counters() -> dict:
+    """The launch counters of the BCNN's kernels, by kernel name."""
+    from repro_torch.kernels import xnor_conv as kconv
+    from repro_torch.kernels import xnor_conv_fused as kfused
+    from repro_torch.kernels import xnor_matmul as kmm
+    return {"xnor_matmul_vpu": kmm.xnor_matmul_vpu,
+            "xnor_matmul_mxu": kmm.xnor_matmul_mxu,
+            "xnor_conv2d_vpu": kconv.xnor_conv2d_vpu,
+            "xnor_conv2d_mxu": kconv.xnor_conv2d_mxu,
+            "xnor_conv2d_pair_vpu": kfused.xnor_conv2d_pair_vpu,
+            "xnor_conv2d_pair_mxu": kfused.xnor_conv2d_pair_mxu}
+
+
+def forward_launches(plan) -> dict:
+    """Kernel launches of one forward under ``plan``, by kernel name."""
+    want = {f"xnor_conv2d_{plan.path}": 1 if plan.conv_fusion else 5,
+            f"xnor_matmul_{plan.path}": 3}
+    if plan.conv_fusion:
+        want[f"xnor_conv2d_pair_{plan.path}"] = 2
+    return want
 
 
 def serve_phase(reference) -> dict:
@@ -1078,21 +1206,17 @@ def serve_phase(reference) -> dict:
     path's serving run."""
     from repro_torch.core import bcnn, bconv
     from repro_torch.core import execution_plan as xp
-    from repro_torch.kernels import xnor_conv as kconv
-    from repro_torch.kernels import xnor_conv_fused as kfused
-    from repro_torch.kernels import xnor_matmul as kmm
     from repro_torch.serve.bcnn_engine import BCNNEngine
 
-    counters = {"xnor_matmul_vpu": kmm.xnor_matmul_vpu,
-                "xnor_matmul_mxu": kmm.xnor_matmul_mxu,
-                "xnor_conv2d_vpu": kconv.xnor_conv2d_vpu,
-                "xnor_conv2d_mxu": kconv.xnor_conv2d_mxu,
-                "xnor_conv2d_pair_vpu": kfused.xnor_conv2d_pair_vpu,
-                "xnor_conv2d_pair_mxu": kfused.xnor_conv2d_pair_mxu}
+    counters = bcnn_counters()
     x_np, packed_cpu, hs, logits_cpu = reference
     x_cpu = hs[0]
+    packed_b = bcnn.fold_model(bcnn.params_from_numpy(
+        bcnn.numpy_params(SEED + 1)))
+    logits_cpu_b = bcnn.forward_packed(packed_b, x_cpu, path="xla").numpy()
 
     launches = {}
+    timings = {}
     for fusion in (False, True):
         for path in ("mxu", "vpu"):
             tag = f"{path}{' fused' if fusion else ''}"
@@ -1102,13 +1226,11 @@ def serve_phase(reference) -> dict:
             eng.warmup()
             for fn in counters.values():
                 fn.launches = 0
-            steps = serve(eng, x_np, logits_cpu, tag)
+            steps, served = serve(eng, x_np, logits_cpu, tag)
             seen = {name: fn.launches for name, fn in counters.items()}
             print(f"[{tag}] launches over {steps} forwards: {seen}")
-            want = {f"xnor_conv2d_{path}": (1 if fusion else 5) * steps,
-                    f"xnor_matmul_{path}": 3 * steps}
-            if fusion:
-                want[f"xnor_conv2d_pair_{path}"] = 2 * steps
+            want = {k: n * steps
+                    for k, n in forward_launches(eng.plan).items()}
             check(all(seen[k] == v for k, v in want.items()),
                   f"[{tag}] expected {want} launches")
             check(all(v == 0 for k, v in seen.items() if k not in want),
@@ -1116,6 +1238,8 @@ def serve_phase(reference) -> dict:
             for k in want:
                 if k not in launches or "pair" in k:
                     launches[k] = seen[k]
+            graph_checks(eng, tag, x_np, served, packed_cpu, packed_b,
+                         logits_cpu_b)
 
             packed_gpu = eng.forward.packed
             if fusion:
@@ -1156,9 +1280,18 @@ def serve_phase(reference) -> dict:
                 print(f"[{tag}] per-layer ms per call at batch {N_SLOTS} "
                       f"(CONV-1..FC-3, CUDA events): "
                       + ", ".join(f"{t:.4f}" for t in layer_ms))
-            print(f"[{tag}] profile of the served forward at batch "
+            fwd = eng.forward
+            xb = x_cpu[:N_SLOTS].cuda()
+            print(f"[{tag}] profile of the eager forward at batch "
                   f"{N_SLOTS}:")
-            profile_forward(eng.forward, x_cpu[:N_SLOTS].cuda())
+            eager = profile_forward(
+                lambda x: bcnn.forward_packed(fwd.packed, x, plan=fwd.plan),
+                xb)
+            print(f"[{tag}] profile of the served forward (one CUDA-graph "
+                  f"replay on the engine's stream) at batch {N_SLOTS}:")
+            timings[tag] = (eager, profile_forward(fwd, xb,
+                                                   stream=fwd.stream))
+            eng.close()
 
     z_cpu = bconv.fpconv_apply(packed_cpu.conv1, x_cpu, binarize_out=False)
     z_gpu = bconv.fpconv_apply(packed_gpu.conv1, x_cpu.cuda(),
@@ -1170,15 +1303,23 @@ def serve_phase(reference) -> dict:
     print(f"CONV-1 bits differing between card and CPU: {n_diff} of "
           f"{diff.numel()} (all at |z| < 1e-3); max |z_gpu - z_cpu| "
           f"{(z_gpu - z_cpu).abs().max().item():.3g}")
+    print(f"eager vs replayed forward at batch {N_SLOTS} "
+          f"({smi('name,power.limit')}): wall ms, device ms, idle share, "
+          f"profiler launches")
+    for tag, (e, r) in timings.items():
+        print(f"  [{tag}] wall {e['wall_ms']:.4f} -> {r['wall_ms']:.4f}, "
+              f"device {e['device_ms']:.4f} -> {r['device_ms']:.4f}, idle "
+              f"{e['idle']:.3f} -> {r['idle']:.3f}, launches "
+              f"{e['launches']} -> {r['launches']}")
     print(f"card: {smi('name,power.limit')}")
     return launches
 
 
-def tune_phase(reference) -> None:
+def tune_phase(reference):
     """Phase 4: tune the plan on the card twice and require the two plans
     to agree and every candidate to be bit-exact; export the plan in an
     artifact, reload it as the cached plan and serve with it against the
-    CPU port (``cpu_reference()``)."""
+    CPU port (``cpu_reference()``). Returns the reloaded plan."""
     import tempfile
 
     from repro_torch.core import bcnn_artifact
@@ -1232,6 +1373,184 @@ def tune_phase(reference) -> None:
                                  device="cuda")
     eng.warmup()
     serve(eng, x_np, logits_cpu, "tuned")
+    return cached
+
+
+def fleet_drive(router, x_np, rate_hz, mix, refs, tag, swap_to=None):
+    """Drive ``router`` (threaded, warmed) with mixed Poisson traffic
+    (``drive_mixed_poisson``), the launch counters zeroed just before and
+    read just after. Require zero drops, a closed ledger per class, one
+    capture on every replica, the path's launches on every step, and each
+    result equal to its stamped epoch's references ``refs[epoch] = (card
+    eager logits, CPU port logits)``: bitwise to the first, allclose 1e-5
+    with equal argmax to the second. Returns the drive's numbers."""
+    from repro_torch.serve import drive_mixed_poisson
+    counters = bcnn_counters()
+    plan = router.replicas[0].engine.plan
+    steps0 = sum(r.engine.steps_executed for r in router.replicas_ever)
+    for fn in counters.values():
+        fn.launches = 0
+    d = drive_mixed_poisson(router, x_np, rate_hz, mix=mix, seed=SEED,
+                            swap_to=swap_to)
+    seen = {k: fn.launches for k, fn in counters.items()}
+    steps = sum(r.engine.steps_executed
+                for r in router.replicas_ever) - steps0
+    n = len(x_np)
+    check(d["n_accepted"] == n and d["n_rejected"] == 0
+          and len(d["results"]) == n and router.pending == 0,
+          f"[{tag}] dropped requests: {d['n_accepted']} of {n} accepted, "
+          f"{len(d['results'])} served")
+    for name, c in router.counters().items():
+        check(c["submitted"] == c["completed"] and c["shed"] == 0,
+              f"[{tag}] ledger of {name} not closed: {c}")
+    want = {k: v * steps for k, v in forward_launches(plan).items()}
+    check(all(seen[k] == want.get(k, 0) for k in seen),
+          f"[{tag}] launches {seen} over {steps} steps, expected {want}")
+    for i, q in enumerate(d["requests"]):
+        card, cpu = refs[q.epoch]
+        check(np.array_equal(q.logits, card[i]),
+              f"[{tag}] request {i} (epoch {q.epoch}, replica "
+              f"{q.replica_id}) differs from the eager card forward")
+        check(np.allclose(q.logits, cpu[i], rtol=1e-5, atol=1e-5)
+              and q.logits.argmax() == cpu[i].argmax(),
+              f"[{tag}] request {i} differs from the CPU port")
+    caches = [r.step_cache_size for r in router.replicas_ever]
+    check(all(c == 1 for c in caches), f"[{tag}] step_cache_size {caches}")
+    if swap_to is not None:
+        check(set(d["epochs"]) == {0, 1}
+              and all(r.epoch == 1 for r in router.replicas),
+              f"[{tag}] the rolling swap did not span the drive: "
+              f"{d['epochs']}")
+    span = (max(q.t_done for q in d["requests"])
+            - min(q.t_submit for q in d["requests"]))
+    out = {"img_s": n / span, "steps": steps, "epochs": d["epochs"]}
+    parts = []
+    for name, st in d["stats"].items():
+        out[name] = (st["p50"] * 1e3, st["p99"] * 1e3)
+        parts.append(f"{name} n={st['n']} p50 {st['p50'] * 1e3:.3f} ms "
+                     f"p99 {st['p99'] * 1e3:.3f} ms")
+    print(f"[{tag}] {n} requests offered at {rate_hz:g} req/s: "
+          + "; ".join(parts) + f"; {out['img_s']:.1f} img/s over "
+          f"{steps} steps ({n / steps:.2f} images a step); epochs served "
+          f"{dict(sorted(d['epochs'].items()))}; launches {want}; every "
+          f"result bitwise equal to its epoch's eager card forward; "
+          f"step_cache_size {caches}")
+    return out
+
+
+def fleet_phase(reference, plan) -> None:
+    """Phase 5: the replica fleet on the card (``serve/router.py``): the
+    tuned ``plan`` shared by every replica, each replica's step one
+    CUDA-graph replay on its own stream and thread. Mixed online + bulk
+    Poisson traffic at ``PRIORITY_MIX`` through 2 replicas with a rolling
+    swap mid-drive, then 1 and 2 replicas at the same rate and saturated
+    (``fleet_drive`` checks each); then an autoscaled fleet through 1 ->
+    2 -> 1 replicas under a bulk burst, replica 1 captured on the
+    controller thread while replica 0 serves. Every wait is bounded."""
+    from repro_torch.configs import bcnn_cifar10 as pc
+    from repro_torch.core import bcnn
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.launch.serve_bcnn import parse_priority_mix
+    from repro_torch.serve import AutoscaleConfig, Router
+
+    _, packed_a, _, _ = reference
+    packed_b = bcnn.fold_model(bcnn.params_from_numpy(
+        bcnn.numpy_params(SEED + 1)))
+    x_np, _ = SyntheticImages(global_batch=FLEET_REQUESTS,
+                              seed=SEED + 2).batch(0)
+    refs = {}
+    for epoch, packed in enumerate((packed_a, packed_b)):
+        fwd = bcnn.make_packed_forward(packed, plan=plan, device="cuda")
+        refs[epoch] = (eager_logits(fwd, x_np), bcnn.forward_packed(
+            packed, torch.from_numpy(x_np), path="xla").numpy())
+        fwd.close()
+    mix = parse_priority_mix(pc.PRIORITY_MIX)
+
+    def fleet(n_replicas, **kw):
+        return Router.from_packed(
+            packed_a, n_replicas=n_replicas, n_slots=N_SLOTS, plan=plan,
+            device="cuda", threaded=True, max_queue=kw.pop(
+                "max_queue", FLEET_REQUESTS),
+            online_reserve=pc.ONLINE_RESERVE, bulk_chunk=pc.BULK_CHUNK,
+            **kw)
+
+    print(f"[fleet] plan {plan.path}, fusion "
+          f"{'on' if plan.conv_fusion else 'off'}; {N_SLOTS} slots a "
+          f"replica, mix {pc.PRIORITY_MIX}, online deadline "
+          f"{pc.ONLINE_DEADLINE_S} s; {smi('name,power.limit')}")
+    rows = {}
+    for n_rep, rate, swap in ((2, FLEET_RATE_HZ, True),
+                              (1, FLEET_RATE_HZ, False),
+                              (2, FLEET_SATURATE_HZ, False),
+                              (1, FLEET_SATURATE_HZ, False)):
+        tag = (f"fleet {n_rep}x{N_SLOTS} @ {rate:g}"
+               + (" + rolling swap" if swap else ""))
+        router = fleet(n_rep)
+        try:
+            rows[tag] = fleet_drive(router, x_np, rate, mix, refs, tag,
+                                    swap_to=packed_b if swap else None)
+        finally:
+            router.shutdown(timeout=FLEET_TIMEOUT_S)
+
+    cfg = AutoscaleConfig(
+        min_replicas=1, max_replicas=2,
+        up_watermark=pc.AUTOSCALE_UP_WATERMARK,
+        down_watermark=pc.AUTOSCALE_DOWN_WATERMARK,
+        window_s=pc.AUTOSCALE_WINDOW_S, cooldown_s=pc.AUTOSCALE_COOLDOWN_S,
+        interval_s=pc.AUTOSCALE_INTERVAL_S)
+    router = fleet(1, autoscale=cfg, max_queue=FLEET_BURST)
+    try:
+        rep0 = router.replicas[0]
+        during = []
+        scale_up = router.scale_up
+
+        def timed_scale_up():
+            steps0, t0 = rep0.engine.steps_executed, time.perf_counter()
+            rep = scale_up()
+            during.append((rep0.engine.steps_executed - steps0,
+                           time.perf_counter() - t0))
+            return rep
+        router.scale_up = timed_scale_up
+        reps = FLEET_BURST // FLEET_REQUESTS
+        t0 = time.perf_counter()
+        reqs = router.submit_batch(np.concatenate([x_np] * reps), cls="bulk")
+        for r in reqs:
+            r.wait(timeout=FLEET_TIMEOUT_S)
+        dt = time.perf_counter() - t0
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        while router.autoscaler.n_scale_downs < 1:
+            check(time.monotonic() < deadline, "[autoscale] no scale-down")
+            time.sleep(0.01)
+        timeline = [n for _, n in router.autoscaler.timeline(1)]
+        check(timeline == [1, 2, 1], f"[autoscale] timeline {timeline}")
+        check(len(during) == 1 and during[0][0] > 0,
+              f"[autoscale] replica 0 took no step while replica 1 was "
+              f"built and captured: {during}")
+        card = np.concatenate([refs[0][0]] * reps)
+        got = np.concatenate([r.logits if r.logits.ndim == 2
+                              else r.logits[None] for r in reqs])
+        check(np.array_equal(got, card),
+              "[autoscale] results differ from the eager card forward")
+        ever = router.replicas_ever
+        caches = [r.step_cache_size for r in ever]
+        check(len(ever) == 2 and all(c == 1 for c in caches)
+              and all(r.served > 0 for r in ever),
+              f"[autoscale] replicas {[(r.id, r.served) for r in ever]}, "
+              f"step_cache_size {caches}")
+        c = router.counters()["bulk"]
+        check(c["submitted"] == c["completed"] == FLEET_BURST
+              and c["shed"] == 0, f"[autoscale] ledger {c}")
+        print(f"[autoscale] bulk burst of {FLEET_BURST} images in chunks of "
+              f"{pc.BULK_CHUNK}: served in {dt * 1e3:.1f} ms "
+              f"({FLEET_BURST / dt:.1f} img/s); replicas 1 -> 2 -> 1; "
+              f"replica 1 built and captured in {during[0][1] * 1e3:.1f} ms "
+              f"while replica 0 took {during[0][0]} steps; served "
+              f"{[(r.id, r.served) for r in ever]}; step_cache_size "
+              f"{caches}; every result bitwise equal to the eager card "
+              f"forward")
+    finally:
+        router.shutdown(timeout=FLEET_TIMEOUT_S)
+    print(f"card: {smi('name,power.limit')}")
 
 
 def lm_serve(cfg, packed, prompts, device, mode, path, swap_to=None):
@@ -1263,7 +1582,7 @@ def lm_serve(cfg, packed, prompts, device, mode, path, swap_to=None):
 
 
 def lm_phase() -> int:
-    """Phase 5: the XNOR LM at full CONFIG on the card against the same
+    """Phase 6: the XNOR LM at full CONFIG on the card against the same
     port on the CPU. Returns K6's launch count from the "bw" serving
     run."""
     from repro_torch import configs
@@ -1542,7 +1861,7 @@ def bf16_cut(full, rng, dev) -> None:
 
 
 def dense_phase() -> tuple[int, int]:
-    """Phase 6: the dense LM zoo at Qwen3-8B's full width. Returns K7's
+    """Phase 7: the dense LM zoo at Qwen3-8B's full width. Returns K7's
     launch counts (simt, tc): "simt" from the float32 two-layer cut's
     ``prefill``, "tc" from the full-depth bf16 prefill (the main path's
     run)."""
@@ -1743,7 +2062,7 @@ def main() -> int:
     stats = kernel_phase(Bound())
     reference = cpu_reference()
     launches = serve_phase(reference)
-    tune_phase(reference)
+    fleet_phase(reference, tune_phase(reference))
     launches["binary_weight_matmul"] = lm_phase()
     launches["flash_attention"], launches["flash_attention_tc"] = (
         dense_phase())

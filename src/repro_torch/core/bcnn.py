@@ -17,9 +17,13 @@ binary convs launch the direct conv kernel (K3/K4) and the three FCs the
 XNOR matmul (K1/K2); with conv fusion on, CONV-3/4 and CONV-5/6 run as
 two fused pairs (K5) instead. Weight tensors are plain PyTorch tensors in
 NamedTuples; ``packed_to`` moves a whole net to a device.
+``PackedForward`` serves it: on the card one CUDA graph per input shape,
+and weights hot-swapped in place (``split_packed``,
+``assert_swap_compatible``).
 """
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -27,7 +31,7 @@ import torch
 
 from repro_torch.core import bconv, bitpack, blinear
 from repro_torch.core.normbinarize import BNParams, norm_only
-from repro_torch.kernels import ops
+from repro_torch.kernels import launch_count, ops
 
 CONV_SPECS = [  # (in_ch, out_ch, maxpool) — paper Table 2
     (3, 128, False),    # CONV-1 (fp)
@@ -268,15 +272,115 @@ def forward_packed(packed: BCNNPacked, x01: torch.Tensor,
     return h
 
 
+# ---------------------------------------------------------------------------
+# Weight hot-swap: the weight tensors are the leaves, the ints are statics
+# ---------------------------------------------------------------------------
+
+def _flatten(obj) -> list:
+    """Leaves of a packed net, depth first in field order: tensors and the
+    statics (ints, floats, None) — the reference's ``tree_flatten`` order
+    with None kept as a leaf."""
+    if isinstance(obj, tuple):
+        return [leaf for x in obj for leaf in _flatten(x)]
+    return [obj]
+
+
+def _structure(obj):
+    """The tree's shape without its leaves (NamedTuple names and arity)."""
+    if isinstance(obj, tuple):
+        return (type(obj).__name__, tuple(_structure(x) for x in obj))
+    return "*"
+
+
+def _is_weight(x) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def split_packed(packed: BCNNPacked):
+    """Split a packed net into (weight tensors, rebuild closure).
+
+    The tensors come in the reference's leaf order
+    (``repro/core/bcnn.py::split_packed``); ``rebuild(tensors)`` threads
+    a replacement tuple back through the static skeleton (k, filter
+    sizes, BN eps). The hot-swap contract rests on it: two nets whose
+    tensors agree in shape and dtype and whose statics are equal run the
+    same kernels at the same shapes, so a swap is a copy into the
+    tensors a captured step reads."""
+    def rebuild(arrs) -> BCNNPacked:
+        it = iter(arrs)
+        return _tree_map(lambda _: next(it), packed)
+
+    return tuple(x for x in _flatten(packed) if _is_weight(x)), rebuild
+
+
+def assert_swap_compatible(old: BCNNPacked, new: BCNNPacked) -> tuple:
+    """Check that ``new`` can hot-swap into a forward built from ``old``
+    with no new capture: the same tree, the same statics (k/fh/fw/eps),
+    tensors of the same shapes and dtypes. Returns ``new``'s tensors in
+    ``split_packed`` order; raises ValueError naming the first mismatch
+    by its leaf index (the reference's messages)."""
+    to, tn = _structure(old), _structure(new)
+    if to != tn:
+        raise ValueError(f"packed tree structure differs: {to} != {tn}")
+    lo, ln = _flatten(old), _flatten(new)
+    for i, (a, b) in enumerate(zip(lo, ln)):
+        if _is_weight(a) != _is_weight(b):
+            raise ValueError(f"leaf {i}: array/static kind mismatch "
+                             f"({type(a).__name__} vs {type(b).__name__})")
+        if _is_weight(a):
+            if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
+                raise ValueError(
+                    f"leaf {i}: shape/dtype mismatch {tuple(a.shape)}/"
+                    f"{a.dtype} vs {tuple(b.shape)}/{b.dtype} — a swap must "
+                    f"come from the same architecture (fold_model of "
+                    f"identically-shaped params)")
+        elif a != b:
+            raise ValueError(f"leaf {i}: static mismatch {a!r} != {b!r} "
+                             f"(k/filter-size/eps must be identical)")
+    return tuple(x for x in ln if _is_weight(x))
+
+
+class _Step(NamedTuple):
+    """One captured forward: its graph, the input and output buffers it
+    reads and writes, and the launches one replay runs."""
+    graph: "torch.cuda.CUDAGraph"
+    x: torch.Tensor
+    y: torch.Tensor
+    launches: dict
+
+
 class PackedForward:
     """The packed forward bound to one device and one plan: a plain
-    ``(N, 32, 32, 3) float32 → (N, 10) float32`` callable. The plan fixes
-    every kernel choice: path, per-layer strategy, fusion of the conv
-    pairs and their tiles (``core/execution_plan.py``).
+    ``(N, 32, 32, 3) float32 → (N, 10) float32`` callable with weight
+    hot-swap. The plan fixes every kernel choice: path, per-layer
+    strategy, fusion of the conv pairs and their tiles
+    (``core/execution_plan.py``).
 
-    Unlike the reference's self-jitting forward it has no compile cache
-    and no weight hot-swap: PyTorch runs eagerly, and CUDA-graph capture
-    and ``swap`` come with a later slice of the port.
+    * **Owned weights.** Every tensor of the net is copied onto
+      ``device``, so a swap never writes into the caller's net and two
+      forwards built from one net share nothing.
+    * **One CUDA graph per input shape** (the reference's one compile per
+      shape). On the card the first call at a shape copies the input into
+      a static buffer, runs one eager forward on the forward's own
+      ``stream`` (``kernels/streams.py``: a pooled stream that no other
+      open forward holds; the eager run also sets each kernel's
+      attributes outside any capture), then captures the forward into a
+      ``torch.cuda.CUDAGraph`` in thread-local mode, so another thread
+      may serve while this one captures. Every call, the first included,
+      copies its input into the buffer, replays, and returns a clone of
+      the static output. A failed capture or replay raises; nothing falls
+      back to eager launches. The launch counters count each replay's launches
+      (``kernels/launch_count.py``). On the CPU the forward stays eager.
+    * ``cache_size()``: graphs captured (on the CPU, input shapes seen);
+      no ``swap`` changes it.
+    * ``swap(new)``: validate (``assert_swap_compatible``), then copy
+      every new tensor into the owned one on ``stream``, after any replay
+      in flight: the tensors keep their storage, so the graphs read the
+      new weights.
+
+    One caller at a time: calls and swaps of one forward must not
+    overlap (the engine that owns it is single-driver). ``close()``
+    frees the graphs, the weights and the stream when no call will come.
     """
 
     def __init__(self, packed: BCNNPacked, *, path: str = "auto",
@@ -285,16 +389,29 @@ class PackedForward:
                  plan=None, device="cuda"):
         from repro_torch.core import execution_plan
         self.device = execution_plan.resolve_device(device)
-        self._packed = packed_to(packed, self.device)
+        self._packed = _tree_map(lambda t: t.to(self.device, copy=True),
+                                 packed)
+        self._weights = split_packed(self._packed)[0]
         if plan is None:
             plan = execution_plan.build_plan(
                 self._packed, path=path, conv_strategy=conv_strategy,
                 conv_fusion=conv_fusion, device=self.device)
         self._plan = plan
+        self.stream = None
+        self._release = None
+        if self.device.type == "cuda":
+            from repro_torch.kernels import streams
+            self.stream = streams.acquire(self.device)
+            self._release = weakref.finalize(self, streams.release,
+                                             self.stream)
+        self._steps: dict[tuple, _Step] = {}
+        self._shapes: set[tuple] = set()
+        self._closed = False
 
     @property
     def packed(self) -> BCNNPacked:
-        """The packed net being served (on ``device``)."""
+        """The packed net being served (owned, on ``device``)."""
+        self._check_open()
         return self._packed
 
     @property
@@ -303,8 +420,82 @@ class PackedForward:
         return self._plan
 
     def __call__(self, x01: torch.Tensor) -> torch.Tensor:
-        return forward_packed(self._packed, x01.to(self.device),
-                              plan=self._plan)
+        self._check_open()
+        x01 = x01.to(self.device)
+        key = (tuple(x01.shape), x01.dtype)
+        if self.stream is None:
+            self._shapes.add(key)
+            return forward_packed(self._packed, x01, plan=self._plan)
+        caller = torch.cuda.current_stream(self.device)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            if caller != self.stream:
+                self.stream.wait_stream(caller)
+            step = self._steps.get(key)
+            if step is None:
+                step = self._capture(key, x01)
+            step.x.copy_(x01)
+            step.graph.replay()
+            launch_count.add_all(step.launches)
+            out = step.y.clone()
+        if caller != self.stream:
+            caller.wait_stream(self.stream)
+            out.record_stream(caller)
+        return out
+
+    def _capture(self, key: tuple, x01: torch.Tensor) -> _Step:
+        """Capture the forward at ``x01``'s shape (on ``stream``)."""
+        x_static = x01.clone()
+        forward_packed(self._packed, x_static, plan=self._plan)
+        graph = torch.cuda.CUDAGraph()
+        with launch_count.recording() as launches:
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                y_static = forward_packed(self._packed, x_static,
+                                          plan=self._plan)
+        step = _Step(graph, x_static, y_static, launches)
+        self._steps[key] = step
+        self._shapes.add(key)
+        return step
+
+    def cache_size(self) -> int:
+        """CUDA graphs captured, one per input shape (on the CPU: input
+        shapes seen); unchanged by any number of ``swap``s or by
+        ``close``."""
+        return len(self._shapes)
+
+    def close(self) -> None:
+        """Free the graphs and the owned weights and hand the stream back
+        (``kernels/streams.py``) once no call will come: a retired
+        replica's forward. ``cache_size`` still answers; calls, swaps
+        and ``packed`` raise afterwards."""
+        self._closed = True
+        self._steps.clear()
+        self._packed = None
+        self._weights = ()
+        if self._release is not None:
+            self._release()
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError("this PackedForward was closed")
+
+    def swap(self, new_packed: BCNNPacked) -> None:
+        """Copy ``new_packed``'s weights into the served ones in place
+        (shapes and statics must match: ``assert_swap_compatible``)."""
+        self._check_open()
+        new = assert_swap_compatible(self._packed, new_packed)
+        if self.stream is None:
+            for dst, src in zip(self._weights, new):
+                dst.copy_(src)
+            return
+        caller = torch.cuda.current_stream(self.device)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            if caller != self.stream:
+                self.stream.wait_stream(caller)
+            for dst, src in zip(self._weights, new):
+                dst.copy_(src)
+        if caller != self.stream:
+            caller.wait_stream(self.stream)
 
 
 def make_packed_forward(packed: BCNNPacked, *, path: str = "auto",
@@ -312,6 +503,8 @@ def make_packed_forward(packed: BCNNPacked, *, path: str = "auto",
                         conv_fusion: bool | None = None,
                         plan=None, device="cuda") -> PackedForward:
     """Bind ``forward_packed`` to ``device`` (default the GPU; raises when
-    there is none — pass ``device="cpu"`` for the plain PyTorch path)."""
+    there is none — pass ``device="cpu"`` for the plain PyTorch path): a
+    ``PackedForward``, one CUDA graph per input shape on the card, with
+    ``swap(new_packed)`` for an in-place weight hot-swap."""
     return PackedForward(packed, path=path, conv_strategy=conv_strategy,
                          conv_fusion=conv_fusion, plan=plan, device=device)

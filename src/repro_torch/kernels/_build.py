@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -127,9 +128,19 @@ def build_log() -> str:
     return path.read_text() if path.exists() else ""
 
 
-@functools.cache
+_LOAD_LOCK = threading.Lock()
+
+
 def load() -> ctypes.CDLL:
-    """Build if needed, load once per process, declare every signature."""
+    """Build if needed, load once per process, declare every signature.
+    Thread-safe: replica threads whose first launches come together wait
+    for one build instead of running two."""
+    with _LOAD_LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in (SIGNATURES | PROBES).items():
         fn = getattr(lib, name)

@@ -12,6 +12,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 // Phase stamps for benchmarks/torch_vpu_phases.py. Built with REPRO_PHASES
 // defined, REPRO_PHASE_TABLE(t), at file scope, defines a device table t of
 // 8 + 8 words for each of up to 2^16 blocks and extern "C" t_read(dst,
@@ -160,10 +162,14 @@ __device__ __forceinline__ bool rows_vec(const int32_t* src, int K, int k0,
 
 // Launch `kernel` as clusters of shape `cluster` (grid a multiple of it).
 // The kernel's dynamic shared memory limit is raised once per (kernel,
-// device) to the most a block can take beside its static shared memory. A cluster shape the device cannot hold at this shared memory
+// device) to the most a block can take beside its static shared memory. A
+// cluster shape the device cannot hold at this shared memory
 // (cudaOccupancyMaxActiveClusters = 0) is refused with the CUDA error; the
 // check runs once per (kernel, device, cluster shape) and larger shared
-// memory. Not thread-safe: launches come from one host thread.
+// memory. Thread-safe: one mutex guards the table of seen launches, so
+// replica threads may launch at once; the launch itself runs outside it.
+// A CUDA-graph capture must find its launches in the table (an eager run
+// first), since the attribute and occupancy calls are not captured.
 template <typename... Params, typename... Args>
 int launch_cluster(void (*kernel)(Params...), dim3 grid, dim3 cluster,
                    int threads, size_t smem, void* stream, Args... args) {
@@ -174,6 +180,7 @@ int launch_cluster(void (*kernel)(Params...), dim3 grid, dim3 cluster,
   };
   static Seen seen[64];
   static int n_seen;
+  static std::mutex seen_mutex;
   const void* key = reinterpret_cast<const void*>(kernel);
   const int csize = cluster.x + 16 * (cluster.y + 16 * cluster.z);
   int dev = 0;
@@ -191,6 +198,7 @@ int launch_cluster(void (*kernel)(Params...), dim3 grid, dim3 cluster,
   attr[0].val.clusterDim.z = cluster.z;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  std::unique_lock<std::mutex> table_lock(seen_mutex);
   bool raised = false;
   Seen* same = nullptr;
   for (int i = 0; i < n_seen; ++i) {
@@ -218,6 +226,7 @@ int launch_cluster(void (*kernel)(Params...), dim3 grid, dim3 cluster,
       seen[n_seen++] = Seen{key, dev, csize, smem};
     }
   }
+  table_lock.unlock();
   e = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

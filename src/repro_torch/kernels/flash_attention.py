@@ -38,7 +38,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launch_count
 from repro_torch.kernels.xnor_matmul import aligned16
 
 MAX_HEAD_DIM = 256
@@ -214,11 +214,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 int(q.dtype == torch.bfloat16), hd ** -0.5)
     with torch.cuda.device(q.device):
         _build.launch(*args, torch.cuda.current_stream().cuda_stream)
-    flash_attention.launches += 1
+    launch_count.add(flash_attention)
     if variant == "tc":
-        flash_attention.launches_tc += 1
+        launch_count.add(flash_attention, "launches_tc")
     else:
-        flash_attention.launches_simt += 1
+        launch_count.add(flash_attention, "launches_simt")
         if out.shape[3] != hd:
             out = out[..., :hd].contiguous()
     return out

@@ -27,7 +27,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core import bitpack
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launch_count
 from repro_torch.kernels.xnor_matmul import (SMEM_PER_BLOCK, WAVE,
                                              aligned16, check_thresholds,
                                              check_words, pow2_at_least)
@@ -281,7 +281,7 @@ def xnor_conv2d_vpu(a_words: torch.Tensor, w_words: torch.Tensor, *, k: int,
     """K3: direct packed conv, XNOR + popcount, fused eq. 8 optional."""
     out = _launch("xnor_conv2d_vpu", a_words, w_words, k, fh, fw, stride,
                   pad, thr_c, thr_flip)
-    xnor_conv2d_vpu.launches += 1
+    launch_count.add(xnor_conv2d_vpu)
     return out
 
 
@@ -296,7 +296,7 @@ def xnor_conv2d_mxu(a_words: torch.Tensor, w_words: torch.Tensor, *, k: int,
     columns."""
     out = _launch("xnor_conv2d_mxu", a_words, w_words, k, fh, fw, stride,
                   pad, thr_c, thr_flip)
-    xnor_conv2d_mxu.launches += 1
+    launch_count.add(xnor_conv2d_mxu)
     return out
 
 

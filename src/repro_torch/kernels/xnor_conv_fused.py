@@ -48,7 +48,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import bitpack
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launch_count
 from repro_torch.kernels.xnor_matmul import check_thresholds, check_words
 
 TH = 8                  # largest tile the rule and the tuner consider
@@ -265,7 +265,7 @@ def xnor_conv2d_pair_vpu(a_words: torch.Tensor, wa_words: torch.Tensor,
     kb, fha, fwa, fhb, fwb, pool, thr_a_c, thr_a_flip, thr_b_c,
     thr_b_flip, th, tw."""
     out = _launch("xnor_conv2d_pair_vpu", a_words, wa_words, wb_words, **kw)
-    xnor_conv2d_pair_vpu.launches += 1
+    launch_count.add(xnor_conv2d_pair_vpu)
     return out
 
 
@@ -274,7 +274,7 @@ def xnor_conv2d_pair_mxu(a_words: torch.Tensor, wa_words: torch.Tensor,
     """K5 via ±1 int8 unpack + tensor-core dot; same contract and cluster
     as ``xnor_conv2d_pair_vpu``."""
     out = _launch("xnor_conv2d_pair_mxu", a_words, wa_words, wb_words, **kw)
-    xnor_conv2d_pair_mxu.launches += 1
+    launch_count.add(xnor_conv2d_pair_mxu)
     return out
 
 

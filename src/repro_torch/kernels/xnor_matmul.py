@@ -27,8 +27,9 @@ activations and (N, Kw) int32 words and returns (M, N) in the
 activations' dtype; its plain version is ``kernels/ref.py::
 binary_weight_matmul_ref``. Every wrapper launches on the current stream,
 allocates only its output, and counts its launches in a plain int
-attribute (``xnor_matmul_vpu.launches``); ``kernels/ops.py`` runs the
-plain versions on CPU tensors.
+attribute (``xnor_matmul_vpu.launches``, through
+``kernels/launch_count.py``, which also counts CUDA-graph replays);
+``kernels/ops.py`` runs the plain versions on CPU tensors.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core import bitpack
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launch_count
 
 
 # Mirrors of csrc/xnor_matmul.cu (K2) and csrc/bits.cuh: 4 warps a block,
@@ -318,7 +319,7 @@ def xnor_matmul_vpu(a_words: torch.Tensor, w_words: torch.Tensor, *, k: int,
                     thr_flip: torch.Tensor | None = None) -> torch.Tensor:
     """K1: packed XNOR matmul, XNOR + popcount (paper eq. 5 / eq. 8)."""
     out = _launch("xnor_matmul_vpu", a_words, w_words, k, thr_c, thr_flip)
-    xnor_matmul_vpu.launches += 1
+    launch_count.add(xnor_matmul_vpu)
     return out
 
 
@@ -329,7 +330,7 @@ def xnor_matmul_mxu(a_words: torch.Tensor, w_words: torch.Tensor, *, k: int,
     .and.popc`` on the packed words as they lie (no unpack), output
     channels on the MMA's rows, activation rows on its columns."""
     out = _launch("xnor_matmul_mxu", a_words, w_words, k, thr_c, thr_flip)
-    xnor_matmul_mxu.launches += 1
+    launch_count.add(xnor_matmul_mxu)
     return out
 
 
@@ -371,7 +372,7 @@ def binary_weight_matmul(a: torch.Tensor, w_words: torch.Tensor, *,
                       scale.data_ptr() if scale is not None else None,
                       out.data_ptr(), m, n, kw,
                       int(a.dtype == torch.bfloat16), stream)
-    binary_weight_matmul.launches += 1
+    launch_count.add(binary_weight_matmul)
     return out
 
 
