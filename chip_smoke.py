@@ -85,6 +85,25 @@ Phases, each fatal on failure (nothing is caught):
    ``TransformerServeModel`` (16 requests through 4 slots, one request's
    tokens equal to a hand-rolled decode loop, a mid-run hot-swap of a
    second seed's weights in place), and one decode step profiled.
+8. Training (``train/bcnn_train.py``) at full Table 2 width: one train
+   step at batch 64 from ``numpy_params`` latents on the card and on the
+   CPU (loss, every gradient, Adam moments, running statistics and the
+   updated weights at ``TRAIN_STEP_TOL``; a weight may differ only where
+   the two gradients' signs differ or |g| < ``TRAIN_ADAM_FLAT``); the
+   default recipe (300 steps, batch 64, checkpoints every 50) straight,
+   and again crashed after step 120 and resumed from its checkpoint (all
+   136 leaves and the overlapping losses bitwise equal; the loss falls);
+   the step timed (CUDA events, images/s) and profiled; a checkpoint's
+   bytes and save / restore time; ``evaluate`` through every route (mxu /
+   vpu, unfused / fused) with K1–K5's launch counters zeroed just before
+   and read just after each, and the 0.97 fold-agreement gate; the
+   trained net exported as an artifact, reloaded and served through a
+   4-slot ``BCNNEngine`` (logits bitwise equal to ``forward_packed``);
+   and the XNOR LM's ``forward_train`` at the full
+   ``configs/xnor_lm_tiny.py::CONFIG`` bitwise equal to ``forward_packed``
+   in modes "bw" (K6), "xnor" on "vpu" (K1) and "mxu" (K2). The trainer
+   runs under ``exact_numerics`` (TF32 off, deterministic algorithms;
+   ``CUBLAS_WORKSPACE_CONFIG`` is set before the first cuBLAS call).
 
 Phase 2 also holds K7 against its plain version at the dense LM's
 attention shape (B, Hq, Hkv, hd) = (1, 32, 8, 128), causal, S in {128,
@@ -130,6 +149,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -291,6 +311,25 @@ DENSE_DECODE_PROMPT = 64         # prefill vs token-by-token decode
 DENSE_TOL = dict(rtol=1e-4, atol=1e-4)
 DENSE_PREFILL = (1, FLASH_PATH_S)
 DENSE_MAX_LEN = 32               # prompt 8 + 16 new tokens fit
+# training (phase 8): the default recipe, the crash step, the card-vs-CPU
+# step's tolerances, and where checkpoints and the artifact go (inside
+# the checkout, gitignored, removed at the end)
+TRAIN_CRASH_AT = 120
+TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_train")
+TRAIN_LM_TOKENS = (2, 64)
+# one step on the card vs the CPU from the same state and batch. CONV-1
+# and every BN reduce float32 in another order, so a z within rounding of
+# 0 may binarize the other way (a few of ~10⁷ decisions); the bounds are
+# relative L2 gaps per leaf, which such a flip moves by far less than a
+# fault would. Adam's first step moves each weight by lr·sign(g), so a
+# gradient within the devices' rounding gap of 0 may move it the other
+# way: an updated weight or BN affine may differ (by at most 2·lr) only
+# where the two gradients differ in sign or both lie below
+# TRAIN_ADAM_FLAT, where u = g / (|g| + eps) is not yet ±1.
+TRAIN_STEP_TOL = {"loss": 1e-4, "grads": 1e-3, "moments": 1e-3,
+                  "running_stats": 1e-4}
+TRAIN_ADAM_FLAT = 1e-6
+TRAIN_SAME = 1e-6               # |Δ| of a weight "equal" after the step
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2044,6 +2083,315 @@ def dense_phase() -> tuple[int, int]:
     return simt_launches, k7_launches
 
 
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    """‖got − want‖ / ‖want‖ in float64 (0 where both are 0)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    den = float(want.norm())
+    num = float((got - want).norm())
+    return num / den if den else num
+
+
+def train_step_check(dev) -> None:
+    """One train step at full width and batch ``pc.TRAIN_BATCH`` from
+    ``numpy_params`` latents, on the card and on the CPU: loss, gradients,
+    Adam moments and running statistics held at ``TRAIN_STEP_TOL``, the
+    updated weights and BN affines at ``TRAIN_ADAM_FLAT`` /
+    ``TRAIN_SAME``."""
+    from repro_torch.configs import bcnn_cifar10 as pc
+    from repro_torch.core import bcnn
+    from repro_torch.data.pipeline import SyntheticImages
+    from repro_torch.train import bcnn_train as bt
+    from repro_torch.train import tree
+
+    adamw = bt.make_adamw(pc.TRAIN_LR)
+    params = bcnn.params_from_numpy(bcnn.numpy_params(SEED))
+    state = bt.BCNNTrainState(params=params, opt=adamw.init(params))
+    x, y = SyntheticImages(global_batch=pc.TRAIN_BATCH, seed=SEED).batch(0)
+    x, y = torch.from_numpy(x), torch.from_numpy(y)
+    step_fn = bt.make_train_step(adamw)
+    out = {}
+    for d in ("cpu", dev):
+        st = bt.state_to(state, d)
+        p = tree.tree_map(lambda t: t.detach().requires_grad_(), st.params)
+        loss, _ = bcnn.loss_fn(p, x.to(d), y.to(d))
+        grads = torch.autograd.grad(loss, tree.tree_leaves(p),
+                                    allow_unused=True)
+        new, _ = step_fn(st, x.to(d), y.to(d))
+        out[d] = (loss.item(), grads, new)
+    (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = out["cpu"], out[dev]
+    gap = abs(l_gpu - l_cpu) / abs(l_cpu)
+    check(gap <= TRAIN_STEP_TOL["loss"], f"[train step] loss card "
+          f"{l_gpu!r} vs CPU {l_cpu!r}")
+    g_gap = 0.0
+    grads = {}
+    for (key, _), a, b in zip(tree.leaves_with_path(params), g_gpu, g_cpu):
+        if b is None:
+            check(a is None, f"[train step] {key}: a gradient on the card "
+                  f"only")
+            continue
+        grads["params/" + key] = (a.cpu(), b)
+        g_gap = max(g_gap, rel_l2(a, b))
+        check(rel_l2(a, b) <= TRAIN_STEP_TOL["grads"], f"[train step] "
+              f"{key} gradient: relative L2 {rel_l2(a, b):.3g}")
+    gaps = {"moments": 0.0, "running_stats": 0.0}
+    worst_share, worst_diff, worst_key = 0.0, 0.0, ""
+    flat_gpu = tree.leaves_with_path(s_gpu)
+    for (key, a), b in zip(flat_gpu, tree.tree_leaves(s_cpu)):
+        a = a.cpu()
+        if key.startswith("opt/m/") or key.startswith("opt/v/"):
+            kind = "moments"
+        elif key.endswith("bn_mean") or key.endswith("bn_var"):
+            kind = "running_stats"
+        elif key == "opt/step":
+            check(int(a) == int(b) == 1, "[train step] Adam step counter")
+            continue
+        else:                                    # weights and BN affines
+            ga, gb = grads[key]
+            diff = (a - b).abs()
+            moved = diff > TRAIN_SAME
+            free = (torch.sign(ga) != torch.sign(gb)) | (
+                torch.maximum(ga.abs(), gb.abs()) < TRAIN_ADAM_FLAT)
+            share = float(moved.double().mean())
+            if share > worst_share:
+                worst_share, worst_key = share, key
+            worst_diff = max(worst_diff, float(diff.max()))
+            check(not bool((moved & ~free).any())
+                  and float(diff.max()) <= 2 * pc.TRAIN_LR + TRAIN_SAME,
+                  f"[train step] {key}: {int((moved & ~free).sum())} "
+                  f"elements differ where both gradients agree in sign; "
+                  f"max |diff| {float(diff.max()):.3g}")
+            continue
+        gaps[kind] = max(gaps[kind], rel_l2(a, b))
+        check(rel_l2(a, b) <= TRAIN_STEP_TOL[kind], f"[train step] {key}: "
+              f"relative L2 {rel_l2(a, b):.3g}")
+    print(f"[train step] full width, batch {pc.TRAIN_BATCH}, card == CPU: "
+          f"loss {l_gpu:.6f} vs {l_cpu:.6f} (relative {gap:.2g}, limit "
+          f"{TRAIN_STEP_TOL['loss']}); gradients worst relative L2 "
+          f"{g_gap:.3g} (limit {TRAIN_STEP_TOL['grads']}); Adam moments "
+          f"{gaps['moments']:.3g} ({TRAIN_STEP_TOL['moments']}); running "
+          f"statistics {gaps['running_stats']:.3g} "
+          f"({TRAIN_STEP_TOL['running_stats']}); weights and BN affines "
+          f"differing by > {TRAIN_SAME} only where the gradients' signs "
+          f"differ or |g| < {TRAIN_ADAM_FLAT}: at most {worst_share:.2e} "
+          f"of a leaf ({worst_key}), max |diff| {worst_diff:.3g} (limit "
+          f"2·lr = {2 * pc.TRAIN_LR})")
+
+
+def pool_tie_check(dev) -> None:
+    """The 2×2 max-pool's gradient on the card goes where the CPU's goes
+    (the first maximum of a window in row-major order, as the reference's
+    ``reduce_window``): CONV-2's integer pre-pool map at full width, batch
+    8, ties and all, with one upstream gradient; bitwise."""
+    from repro_torch.core import bcnn, bconv
+    from repro_torch.data.pipeline import SyntheticImages
+
+    params = bcnn.params_from_numpy(bcnn.numpy_params(SEED))
+    x, _ = SyntheticImages(global_batch=8, seed=SEED).batch(0)
+    a = bconv.fpconv_apply(params.conv1, torch.from_numpy(x))
+    y = bconv.binary_conv(params.convs[0], a)
+    r = torch.randn((8, 16, 16, y.shape[-1]),
+                    generator=torch.Generator().manual_seed(SEED))
+    grads = []
+    for d in ("cpu", dev):
+        yd = y.detach().to(d).requires_grad_()
+        (g,) = torch.autograd.grad((bconv.maxpool2x2(yd) * r.to(d)).sum(),
+                                   yd)
+        grads.append(g.cpu())
+    win = y.detach().reshape(8, 16, 2, 16, 2, -1)
+    top = win.amax(dim=(2, 4), keepdim=True)
+    ties = int(((win == top).sum(dim=(2, 4)) > 1).sum())
+    check(torch.equal(grads[0], grads[1]), "[pool ties] the card's max-pool "
+          "gradient differs from the CPU's")
+    print(f"[pool ties] CONV-2 at batch 8: {ties} of {win.numel() // 4} "
+          f"pool windows tie; the max-pool gradient on the card equals the "
+          f"CPU's bitwise")
+
+
+def train_phase(dev: torch.device) -> None:
+    """Phase 8: the BCNN's training life cycle at full Table 2 width on
+    the card ``dev``, and the XNOR LM's training forward."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.configs import bcnn_cifar10 as pc
+    from repro_torch.core import bcnn, bcnn_artifact
+    from repro_torch.data.pipeline import SyntheticImages
+    from repro_torch.kernels import xnor_matmul as kmm
+    from repro_torch.models import xnor_lm as xl
+    from repro_torch.serve.bcnn_engine import BCNNEngine
+    from repro_torch.train import bcnn_train as bt
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import tree
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    card = smi("name,power.limit")
+    with bt.exact_numerics():
+        train_step_check(dev)
+        pool_tie_check(dev)
+
+    # --- the default recipe straight, then crashed at 120 and resumed
+    kw = dict(steps=pc.TRAIN_STEPS, batch=pc.TRAIN_BATCH, lr=pc.TRAIN_LR,
+              seed=SEED, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    straight, info = bt.train(**kw)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    losses = info["losses"]
+    check(all(np.isfinite(v) for v in losses.values()), "[train] a loss "
+          "is not finite")
+    w = max(1, pc.TRAIN_STEPS // 10)
+    first = np.mean([losses[s] for s in range(w)])
+    last = np.mean([losses[s] for s in range(pc.TRAIN_STEPS - w,
+                                                pc.TRAIN_STEPS)])
+    check(last < first, f"[train] loss did not fall: mean of the first {w} "
+          f"steps {first:.4f}, of the last {w} {last:.4f}")
+    ck_dir = os.path.join(TRAIN_DIR, "ck")
+    try:
+        bt.train(**kw, ckpt_dir=ck_dir, ckpt_every=pc.TRAIN_CKPT_EVERY,
+                 crash_at=TRAIN_CRASH_AT)
+        check(False, "[train] the crash run did not crash")
+    except bt.SimulatedCrash:
+        pass
+    resume_at = ckpt.latest_step(ck_dir)
+    check(resume_at == TRAIN_CRASH_AT // pc.TRAIN_CKPT_EVERY
+          * pc.TRAIN_CKPT_EVERY, f"[train] latest checkpoint {resume_at}")
+    resumed, rinfo = bt.train(**kw, ckpt_dir=ck_dir,
+                              ckpt_every=pc.TRAIN_CKPT_EVERY, resume=True)
+    check(rinfo["start_step"] == resume_at, "[train] resumed elsewhere")
+    pairs = list(zip(tree.leaves_with_path(straight),
+                     tree.tree_leaves(resumed)))
+    bad = [k for (k, a), b in pairs if not torch.equal(a, b)]
+    check(len(pairs) == 136 and not bad, f"[train] resumed state differs "
+          f"from the straight run's at {bad[:5]} ({len(bad)} of "
+          f"{len(pairs)} leaves)")
+    check(all(rinfo["losses"][s] == losses[s]
+              for s in range(resume_at, pc.TRAIN_STEPS)),
+          "[train] resumed losses differ from the straight run's")
+    print(f"[train] {pc.TRAIN_STEPS} steps, batch {pc.TRAIN_BATCH}, lr "
+          f"{pc.TRAIN_LR}: loss {losses[0]:.4f} -> "
+          f"{losses[pc.TRAIN_STEPS - 1]:.4f} (mean of the first {w} steps "
+          f"{first:.4f}, of the last {w} {last:.4f}); crashed after "
+          f"{TRAIN_CRASH_AT}, resumed from step {resume_at}: all "
+          f"{len(pairs)} leaves and losses of steps {resume_at}.."
+          f"{pc.TRAIN_STEPS - 1} bitwise equal to the straight run")
+
+    # --- timing: one step at the recipe's batch, and the loop's wall
+    adamw = bt.make_adamw(pc.TRAIN_LR)
+    step_fn = bt.make_train_step(adamw)
+    x, y = SyntheticImages(global_batch=pc.TRAIN_BATCH, seed=SEED).batch(0)
+    x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    with bt.exact_numerics():
+        step_ms = time_ms(lambda: step_fn(straight, x, y), reps=20,
+                          warmup=3)
+        print(f"[train] step at batch {pc.TRAIN_BATCH} ({card}): "
+              f"{step_ms:.3f} ms between CUDA events, "
+              f"{pc.TRAIN_BATCH / step_ms * 1e3:.1f} images/s; the "
+              f"{pc.TRAIN_STEPS}-step loop {wall_s * 1e3 / pc.TRAIN_STEPS:.3f}"
+              f" ms a step of host wall (data, step, loss read back)")
+        profile_call(lambda: step_fn(straight, x, y), 3,
+                     f"train step at batch {pc.TRAIN_BATCH}")
+
+    # --- checkpoint bytes and save / restore time
+    t0 = time.perf_counter()
+    path = ckpt.save(os.path.join(TRAIN_DIR, "timed"), pc.TRAIN_STEPS,
+                     straight)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    n_bytes = sum(os.path.getsize(os.path.join(path, f))
+                  for f in os.listdir(path))
+    t0 = time.perf_counter()
+    back, _ = ckpt.restore(os.path.join(TRAIN_DIR, "timed"), straight,
+                           device=dev)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    check(all(torch.equal(a, b) for a, b in zip(tree.tree_leaves(back),
+                                                 tree.tree_leaves(straight))),
+          "[ckpt] restored state differs")
+    print(f"[ckpt] {len(pairs)} leaves, {n_bytes} bytes: save "
+          f"{save_ms:.1f} ms (fsync per file), restore onto the card "
+          f"{restore_ms:.1f} ms, bitwise equal")
+
+    # --- the fold gate through the hand kernels, every route
+    counters = bcnn_counters()
+    params = straight.params
+    for fusion in (False, True):
+        for path_ in ("mxu", "vpu"):
+            tag = f"evaluate {path_}{' fused' if fusion else ''}"
+            for fn in counters.values():
+                fn.launches = 0
+            ev = bt.evaluate(params, batch=pc.TRAIN_BATCH, seed=SEED,
+                             n_batches=4, path=path_, conv_fusion=fusion)
+            torch.cuda.synchronize()
+            seen = {k: fn.launches for k, fn in counters.items()}
+            want = {k: 4 * n for k, n in forward_launches(SimpleNamespace(
+                path=path_, conv_fusion=fusion)).items()}
+            check(all(seen[k] == v for k, v in want.items()) and all(
+                v == 0 for k, v in seen.items() if k not in want),
+                f"[{tag}] launches {seen}, expected {want}")
+            check(ev["agree"] >= bt.MIN_FOLD_AGREEMENT, f"[{tag}] top-1 "
+                  f"agreement {ev['agree']} < {bt.MIN_FOLD_AGREEMENT}")
+            print(f"[{tag}] {ev['n']} held-out images: top-1 agreement "
+                  f"{ev['agree']:.4f} (gate {bt.MIN_FOLD_AGREEMENT}), "
+                  f"accuracy {ev['acc_eval']:.4f} training graph / "
+                  f"{ev['acc_packed']:.4f} deployment; launches {seen}")
+
+    # --- export the artifact and serve it
+    art = os.path.join(TRAIN_DIR, "art")
+    bcnn_artifact.save_packed(art, bcnn.fold_model(params),
+                              provenance={"trainer": "chip_smoke.py"})
+    eng = BCNNEngine.from_packed(bcnn_artifact.load_packed(art),
+                                 n_slots=N_SLOTS, device=dev)
+    eng.warmup()
+    x_np, _ = SyntheticImages(global_batch=N_REQUESTS,
+                              seed=SEED).batch(20_000)
+    rids = [eng.submit(img) for img in x_np]
+    out = eng.run()
+    check(sorted(out) == sorted(rids), "[artifact] requests lost")
+    served = np.stack([out[r] for r in rids])
+    want = eager_logits(eng.forward, x_np)
+    check(served.shape == (N_REQUESTS, 10) and np.isfinite(served).all()
+          and np.array_equal(served, want), "[artifact] served logits "
+          "differ from forward_packed's")
+    print(f"[artifact] trained net exported, reloaded and served: "
+          f"{N_REQUESTS} requests through {N_SLOTS} slots "
+          f"(step_cache_size {eng.step_cache_size}), logits bitwise equal "
+          f"to forward_packed on the card")
+    eng.close()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    # --- the XNOR LM: forward_train == forward_packed on the card
+    cfg = configs.get_config("xnor-lm-tiny")
+    lm = tree.tree_map(lambda t: t.to(dev), xl.params_from_numpy(
+        xl.numpy_params(cfg, SEED)))
+    packed = xl.fold(cfg, lm)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, TRAIN_LM_TOKENS)).to(dev)
+    want = xl.forward_train(cfg, lm, toks)
+    check(want.shape == (*TRAIN_LM_TOKENS, cfg.vocab_size)
+          and bool(want.isfinite().all()), "[lm train] logits malformed")
+    lm_counters = {"binary_weight_matmul": kmm.binary_weight_matmul,
+                   "xnor_matmul_vpu": kmm.xnor_matmul_vpu,
+                   "xnor_matmul_mxu": kmm.xnor_matmul_mxu}
+    for mode, path_, kernel in (("bw", "mxu", "binary_weight_matmul"),
+                                ("xnor", "vpu", "xnor_matmul_vpu"),
+                                ("xnor", "mxu", "xnor_matmul_mxu")):
+        for fn in lm_counters.values():
+            fn.launches = 0
+        got = xl.forward_packed(cfg, packed, toks, mode=mode, path=path_)
+        torch.cuda.synchronize()
+        seen = {k: fn.launches for k, fn in lm_counters.items()}
+        check(seen[kernel] == 6 * cfg.n_layers and all(
+            v == 0 for k, v in seen.items() if k != kernel),
+            f"[lm train] {mode}/{path_} launches {seen}")
+        check(torch.equal(got, want), f"[lm train] forward_packed "
+              f"{mode}/{path_} differs from forward_train: max "
+              f"{float((got - want).abs().max()):.3g}")
+        print(f"[lm train] CONFIG, tokens {TRAIN_LM_TOKENS}: forward_train "
+              f"== forward_packed {mode}/{path_} bitwise on the card "
+              f"({seen[kernel]} {kernel} launches)")
+    print(f"card: {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -2051,6 +2399,9 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch  # noqa: F401  (fails here when run outside the repo)
 
+    # deterministic cuBLAS for the trainer (phase 8): read once, before
+    # this process's first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = smi("name,power.limit")
@@ -2066,6 +2417,7 @@ def main() -> int:
     launches["binary_weight_matmul"] = lm_phase()
     launches["flash_attention"], launches["flash_attention_tc"] = (
         dense_phase())
+    train_phase(torch.device("cuda"))
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         s = stats[name]

@@ -1,5 +1,5 @@
 """The paper's own model: the 9-layer CIFAR-10 BCNN of Table 2 — the
-constants the port's serving slice reads (counterpart of
+constants the port's trainer and serving tier read (counterpart of
 ``repro/configs/bcnn_cifar10.py``)."""
 from __future__ import annotations
 
@@ -14,6 +14,14 @@ from repro_torch.core.bconv import (                            # noqa: F401
 NAME = "bcnn-cifar10"
 INPUT_SHAPE = (32, 32, 3)          # CIFAR-10 RGB
 N_CLASSES = 10
+
+# Training defaults (train/bcnn_train.py, launch/train_bcnn.py): the
+# Courbariaux/Bengio recipe's operating point and the step-atomic
+# checkpoint cadence of the restartable loop.
+TRAIN_STEPS = 300
+TRAIN_BATCH = 64
+TRAIN_LR = 2e-3
+TRAIN_CKPT_EVERY = 50
 
 # Streaming-service defaults (serve/bcnn_engine.py, launch/serve_bcnn.py):
 # slot count of the continuously stepped engine.

@@ -1,5 +1,5 @@
-"""The paper's 9-layer CIFAR-10 BCNN (Table 2), deployment half
-(counterpart of ``repro/core/bcnn.py``).
+"""The paper's 9-layer CIFAR-10 BCNN (Table 2), counterpart of
+``repro/core/bcnn.py``.
 
     CONV-1  3→128   3×3  out 128×32×32   (FpDotProduct, eq. 7: 6-bit × 2-bit)
     CONV-2  128→128 3×3  +MP             out 128×16×16
@@ -11,6 +11,11 @@
     FC-2    1024→1024
     FC-3    1024→10  (Norm only, no binarize — paper Fig. 3 step 3)
 
+``forward_train`` is the differentiable training forward (STE, batch-stat
+BN; ``loss_fn``, ``update_running_stats``), ``forward_eval`` the same
+graph with the stored BN statistics — the oracle the packed path is held
+to. Both are plain PyTorch ops (``conv2d``, ``matmul``), as the
+reference's training graph is plain XLA: no Pallas kernel has a backward.
 ``forward_packed`` is the deployment forward: packed int32 weights and
 fused eq. 8 comparators through ``kernels/ops.py`` — on the card the five
 binary convs launch the direct conv kernel (K3/K4) and the three FCs the
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bconv, bitpack, blinear
+from repro_torch.core.binarize import binarize_ste
 from repro_torch.core.normbinarize import BNParams, norm_only
 from repro_torch.kernels import launch_count, ops
 
@@ -43,6 +49,7 @@ CONV_SPECS = [  # (in_ch, out_ch, maxpool) — paper Table 2
 ]
 FC_SPECS = [(8192, 1024), (1024, 1024), (1024, 10)]  # FC-1..3
 BN_EPS = 1e-4
+BN_MOMENTUM = 0.9
 N_LAYERS = 9  # CONV-1..6 (indices 0..5) + FC-1..3 (indices 6..8)
 _BN_FIELDS = ("bn_mean", "bn_var", "bn_gamma", "bn_beta")
 
@@ -62,28 +69,18 @@ class BCNNPacked(NamedTuple):
     fc3_k: int
 
 
-def _default_bn(o: int) -> dict:
-    return dict(bn_mean=torch.zeros(o), bn_var=torch.ones(o),
-                bn_gamma=torch.ones(o), bn_beta=torch.zeros(o))
-
-
 def init(generator: torch.Generator) -> BCNNParams:
     """Latent params with the reference ``init``'s distributions: CONV-1
     N(0, 0.1²), binary layers U(−1, 1), BN at identity. The values differ
     from the reference's, whose ``jax.random`` stream torch cannot
     reproduce; parity tests hand weights across with ``params_from_numpy``
     or an artifact instead."""
-    o, i = CONV_SPECS[0][1], CONV_SPECS[0][0]
-    conv1 = bconv.FpConvParams(
-        w=torch.randn((o, 3, 3, i), generator=generator) * 0.1,
-        **_default_bn(o))
-    convs = tuple(bconv.BConvParams(
-        w=torch.rand((co, 3, 3, ci), generator=generator) * 2 - 1,
-        **_default_bn(co)) for ci, co, _ in CONV_SPECS[1:])
-    fcs = tuple(blinear.BLinearParams(
-        w=torch.rand((fo, fi), generator=generator) * 2 - 1,
-        **_default_bn(fo)) for fi, fo in FC_SPECS)
-    return BCNNParams(conv1=conv1, convs=convs, fcs=fcs)
+    ci, co, _ = CONV_SPECS[0]
+    return BCNNParams(
+        conv1=bconv.fpconv_init(generator, ci, co),
+        convs=tuple(bconv.init(generator, ci, co)
+                    for ci, co, _ in CONV_SPECS[1:]),
+        fcs=tuple(blinear.init(generator, fi, fo) for fi, fo in FC_SPECS))
 
 
 def numpy_params(seed: int) -> BCNNParams:
@@ -128,6 +125,98 @@ def params_from_numpy(params) -> BCNNParams:
         conv1=bconv.FpConvParams(**leaves(params.conv1)),
         convs=tuple(bconv.BConvParams(**leaves(p)) for p in params.convs),
         fcs=tuple(blinear.BLinearParams(**leaves(p)) for p in params.fcs))
+
+
+# ---------------------------------------------------------------------------
+# Training forward (STE) with batch-stat BN, and the stored-stat oracle
+# ---------------------------------------------------------------------------
+
+def _bn_train(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              axes: tuple[int, ...]):
+    """Batch-stat BN: normalize with the biased batch variance, report the
+    unbiased one (n/(n−1)) for the running statistics, which the eq. 8
+    fold reads as a population estimate. Returns (z, mean, var_u)."""
+    mean = torch.mean(y, dim=axes)
+    var = torch.mean(torch.square(y - mean), dim=axes)
+    z = (y - mean) / torch.sqrt(var + BN_EPS) * gamma + beta
+    n = 1
+    for a in axes:
+        n *= y.shape[a]
+    var_u = var * (n / (n - 1)) if n > 1 else var
+    return z, mean, var_u
+
+
+def train_layer(params: BCNNParams, idx: int, a: torch.Tensor):
+    """Layer ``idx`` of ``forward_train``: its BN output z (before the
+    binarize) and its batch statistics (mean, unbiased var).
+
+    ``a`` is the layer's input: the (N, 32, 32, 3) image in [0, 1] for
+    CONV-1 (idx 0), the previous layer's ±1 map or vector otherwise
+    (FC-1, idx 6, flattens the (N, 4, 4, 512) map in hwc order)."""
+    if idx == 0:
+        p = params.conv1
+        y = bconv.fpconv_train(p, a)
+    elif 1 <= idx <= 5:
+        p = params.convs[idx - 1]
+        y = bconv.binary_conv(p, a, maxpool=CONV_SPECS[idx][2])
+    elif 6 <= idx < N_LAYERS:
+        p = params.fcs[idx - 6]
+        y = a.reshape(a.shape[0], -1) @ binarize_ste(p.w).T
+    else:
+        raise ValueError(f"layer index {idx} out of range 0..{N_LAYERS - 1}")
+    axes = (0,) if idx >= 6 else (0, 1, 2)
+    z, mean, var = _bn_train(y, p.bn_gamma, p.bn_beta, axes)
+    return z, (mean, var)
+
+
+def forward_train(params: BCNNParams, x01: torch.Tensor):
+    """(N, 32, 32, 3) image in [0, 1] → (logits, batch_stats).
+
+    ``batch_stats`` holds (mean, unbiased var) of every normalized layer
+    in layer order, for ``update_running_stats``. Every layer but FC-3
+    ends in the STE binarize; FC-3 is Norm only."""
+    stats = []
+    a = x01
+    for idx in range(N_LAYERS):
+        z, st = train_layer(params, idx, a)
+        stats.append(st)
+        a = binarize_ste(z) if idx < N_LAYERS - 1 else z
+    return a, stats
+
+
+def update_running_stats(params: BCNNParams, stats) -> BCNNParams:
+    """Fold fresh batch statistics into the stored running BN stats."""
+    def upd(p, st):
+        m, v = st
+        return p._replace(
+            bn_mean=BN_MOMENTUM * p.bn_mean + (1 - BN_MOMENTUM) * m,
+            bn_var=BN_MOMENTUM * p.bn_var + (1 - BN_MOMENTUM) * v)
+    return BCNNParams(
+        conv1=upd(params.conv1, stats[0]),
+        convs=tuple(upd(p, stats[1 + i]) for i, p in enumerate(params.convs)),
+        fcs=tuple(upd(p, stats[6 + j]) for j, p in enumerate(params.fcs)))
+
+
+def forward_eval(params: BCNNParams, x01: torch.Tensor) -> torch.Tensor:
+    """Inference logits of the float ±1 graph with the stored BN
+    statistics: the oracle of ``forward_packed``. CONV-1 is the
+    deployment ``fpconv_apply``, so both start from the same bits."""
+    a = bconv.fpconv_apply(params.conv1, x01)
+    for i, p in enumerate(params.convs):
+        a = bconv.apply_train(p, a, maxpool=CONV_SPECS[i + 1][2])
+    a = a.reshape(a.shape[0], -1)
+    for j, p in enumerate(params.fcs):
+        a = blinear.apply_train(p, a, binarize_out=(j < 2))
+    return a
+
+
+def loss_fn(params: BCNNParams, x01: torch.Tensor, labels: torch.Tensor):
+    """Softmax cross-entropy of ``forward_train``'s logits, and the batch
+    statistics. Returns (loss, stats)."""
+    logits, stats = forward_train(params, x01)
+    logp = torch.log_softmax(logits, dim=-1)
+    loss = -torch.mean(torch.gather(logp, 1, labels[:, None].long()))
+    return loss, stats
 
 
 def fold_model(params: BCNNParams) -> BCNNPacked:

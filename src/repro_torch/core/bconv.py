@@ -1,6 +1,12 @@
-"""Binary 2-D convolution, deployment half (counterpart of
-``repro/core/bconv.py``): fold, the two packed dataflows, the fused conv
-pair and CONV-1.
+"""Binary 2-D convolution (counterpart of ``repro/core/bconv.py``): the
+differentiable training convs, fold, the two packed dataflows, the fused
+conv pair and CONV-1.
+
+* ``binary_conv`` / ``apply_train`` — the STE conv of the training graph
+  on ±1 NHWC maps, padded with −1 (bit 0 of the packed encoding), and
+  ``fpconv_train`` — CONV-1 (eq. 7) on the STE-quantized 2-bit weights.
+  The reference's layout (NHWC maps, (O, FH, FW, I) latents) is kept and
+  permuted to NCHW around ``conv2d``.
 
 * ``"direct"`` — ``kernels/ops.py::xnor_conv2d``: the channel-packed image
   goes straight through the direct conv kernel (K3/K4 on the card), which
@@ -25,9 +31,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bitpack
-from repro_torch.core.binarize import (quantize_input_6bit,
+from repro_torch.core.binarize import (binarize_ste, quantize_input_6bit,
+                                       quantize_weight_2bit,
                                        quantize_weight_2bit_parts)
 from repro_torch.core.normbinarize import (BNParams, NBThreshold,
+                                           batchnorm_inference,
                                            bn_affine_exact, bn_denom,
                                            fold_threshold)
 from repro_torch.kernels import ops
@@ -66,6 +74,81 @@ class FpConvParams(NamedTuple):
     bn_var: torch.Tensor
     bn_gamma: torch.Tensor
     bn_beta: torch.Tensor
+
+
+def _bn_identity(o: int) -> dict:
+    return dict(bn_mean=torch.zeros(o), bn_var=torch.ones(o),
+                bn_gamma=torch.ones(o), bn_beta=torch.zeros(o))
+
+
+def init(generator: torch.Generator, in_ch: int, out_ch: int, fh: int = 3,
+         fw: int = 3) -> BConvParams:
+    """Latent filters U(−1, 1), BN at identity (the reference's
+    distributions, not its numbers)."""
+    w = torch.rand((out_ch, fh, fw, in_ch), generator=generator) * 2 - 1
+    return BConvParams(w=w, **_bn_identity(out_ch))
+
+
+def fpconv_init(generator: torch.Generator, in_ch: int, out_ch: int,
+                fh: int = 3, fw: int = 3) -> FpConvParams:
+    """CONV-1 latent filters N(0, 0.1²), BN at identity."""
+    w = torch.randn((out_ch, fh, fw, in_ch), generator=generator) * 0.1
+    return FpConvParams(w=w, **_bn_identity(out_ch))
+
+
+def _conv_nhwc(x: torch.Tensor, w: torch.Tensor,
+               padding: tuple[int, int]) -> torch.Tensor:
+    """NHWC maps × (O, FH, FW, I) filters → NHWC, stride 1. The permuted
+    views are NCHW / OIHW tensors in channels-last memory, which cuDNN
+    takes as they are."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2),
+                 padding=padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def binary_conv(p: BConvParams, a_pm1: torch.Tensor, *,
+                maxpool: bool = False) -> torch.Tensor:
+    """The training graph's binary conv before its BN: ±1 NHWC maps ×
+    STE-binarized filters, padded with −1 (the paper's zero padding is in
+    the {1, 0} bit encoding, where bit 0 is −1, which keeps the train
+    path equal to the packed one), then "VALID"; the 2×2 max-pool is
+    taken on this pre-binarize output (paper Fig. 3). The sums are
+    integers, exact in float32."""
+    fh, fw = p.w.shape[1], p.w.shape[2]
+    ap = F.pad(a_pm1, (0, 0, fw // 2, fw // 2, fh // 2, fh // 2),
+               value=-1.0)
+    y = _conv_nhwc(ap, binarize_ste(p.w), (0, 0))
+    return maxpool2x2(y) if maxpool else y
+
+
+def maxpool2x2(y: torch.Tensor) -> torch.Tensor:
+    """2×2, stride-2 max-pool of an NHWC map. Its gradient goes to the
+    first maximum of each window in row-major order, as the reference's
+    ``reduce_window`` max sends it (integer conv outputs tie often)."""
+    return F.max_pool2d(y.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+def apply_train(p: BConvParams, a_pm1: torch.Tensor, *,
+                binarize_out: bool = True,
+                maxpool: bool = False) -> torch.Tensor:
+    """Differentiable binary conv (±1 in / ±1 out) with BN from the stored
+    statistics and an optional 2×2 max-pool before it; the
+    inference-graph oracle of ``apply_packed``."""
+    z = batchnorm_inference(binary_conv(p, a_pm1, maxpool=maxpool),
+                            BNParams(p.bn_mean, p.bn_var, p.bn_gamma,
+                                     p.bn_beta))
+    return binarize_ste(z) if binarize_out else z
+
+
+def fpconv_train(p: FpConvParams, x01: torch.Tensor) -> torch.Tensor:
+    """CONV-1 of the training graph before its BN: the 6-bit input
+    (rescaled to [−31, 31]) convolved, "SAME", with the STE-quantized
+    2-bit weights q·scale (the reference's ``forward_train``); the
+    gradient reaches ``p.w`` through the 2-bit STE. The deployment
+    ``fpconv_apply`` computes the integer dot and scales afterwards."""
+    fh, fw = p.w.shape[1], p.w.shape[2]
+    return _conv_nhwc(quantize_input_6bit(x01), quantize_weight_2bit(p.w),
+                      (fh // 2, fw // 2))
 
 
 def fold(p: BConvParams) -> BConvPacked:

@@ -1,1 +1,1 @@
-"""Synthetic input data for the port."""
+"""Deterministic synthetic input data for the port (``data/pipeline.py``)."""

@@ -11,8 +11,10 @@ where the reference scans. Every layer's full-sequence attention is
 through ``decode_step``, which updates the per-layer caches in place.
 
 The other families (moe, ssm, hybrid, vlm, audio) raise
-``NotImplementedError`` until they are ported (ROADMAP queue 1). Training
-(``loss_fn`` and the backward) comes with the training slice.
+``NotImplementedError`` until they are ported (ROADMAP queue 1). The
+dense ``loss_fn`` is not ported: on the card ``forward_train`` reaches K7,
+which has no backward (ROADMAP queue 1). The BCNN and the XNOR LM train
+(``train/bcnn_train.py``, ``models/xnor_lm.py::loss_fn``).
 
 Entry points (functions of (cfg, params, …)):
     init_params   forward_hidden   forward_train   prefill

@@ -23,8 +23,13 @@ updates the caches and lengths in place. A weight hot-swap copies the new
 weights into the live tensors (``ServingEngine.swap_params``), so every
 weight keeps its storage.
 
-The training forward (``forward_train``, ``loss_fn``) comes with the
-training slice of the port.
+Training: ``forward_train`` runs every projection through
+``core/blinear.py::apply_train`` (STE binarize, a ±1 float32 matmul,
+BN); its integer-valued products equal the packed agree-counts, and the
+float spine is the same sequence of ops, so eager ``forward_train`` is
+bitwise equal to ``forward_packed`` in either mode (the reference's
+contract). ``loss_fn`` is its next-token cross-entropy, differentiable
+through the STEs. No optimizer loop is wired to it yet.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import bitpack
+from repro_torch.core import bitpack, blinear
 from repro_torch.core.binarize import binarize_ste
 from repro_torch.core.blinear import BLinearParams
 from repro_torch.core.execution_plan import resolve_device
@@ -286,6 +291,30 @@ def _block(cfg: XnorLMConfig, blk, x: torch.Tensor, proj, attn) -> torch.Tensor:
 
 def _head(packed, x: torch.Tensor) -> torch.Tensor:
     return _rms(x, packed.ln_f) @ packed.w_head
+
+
+# ------------------------------------------------------------- train forward
+def _proj_train(p: BLinearParams, a_pm1, out: str) -> torch.Tensor:
+    return blinear.apply_train(p, a_pm1, binarize_out=(out == "pm1"))
+
+
+def forward_train(cfg: XnorLMConfig, params: XnorLMParams,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """Differentiable STE forward: (B, S) int tokens → (B, S, vocab)
+    float32 logits, on the tensors' device."""
+    b, s = tokens.shape
+    x = params.tok_embed[tokens] + params.pos_embed[:s][None]
+    for blk in params.blocks:
+        x = _block(cfg, blk, x, _proj_train,
+                   lambda q, k, v: _attn_full(cfg, q, k, v))
+    return _head(params, x)
+
+
+def loss_fn(cfg: XnorLMConfig, params: XnorLMParams, tokens: torch.Tensor,
+            targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``forward_train``'s logits."""
+    logp = torch.log_softmax(forward_train(cfg, params, tokens), dim=-1)
+    return -torch.mean(torch.gather(logp, -1, targets[..., None].long()))
 
 
 # ------------------------------------------------------------ packed forward

@@ -49,7 +49,11 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.models.transformer", "repro_torch.configs.base",
             "repro_torch.configs.qwen3_8b", "repro_torch.configs.yi_6b",
             "repro_torch.configs.glm4_9b",
-            "repro_torch.configs.phi4_mini_3_8b"} <= set(modules)
+            "repro_torch.configs.phi4_mini_3_8b",
+            "repro_torch.train.bcnn_train", "repro_torch.train.checkpoint",
+            "repro_torch.train.optimizer", "repro_torch.train.tree",
+            "repro_torch.data.pipeline",
+            "repro_torch.launch.train_bcnn"} <= set(modules)
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {modules!r}:\n"
