@@ -59,6 +59,23 @@ Phases, each fatal on failure (nothing is caught):
    p50/p99 per class and img/s printed; then an autoscaled fleet through
    1 -> 2 -> 1 replicas under a bulk burst, replica 1 captured while
    replica 0 serves. Every wait is bounded.
+5b. The multi-device forwards (``parallel/bcnn_pipeline.py``,
+   ``parallel/bcnn_data_parallel.py``), every stage and shard side by
+   side on the one card, each on its own stream: in all four routes the
+   stage pipeline at 1, 2 and 3 stages (micro-batches 1 and 8) and the
+   data-parallel forward at 1 and 2 shards and 2 x 2 (micro-batches 8
+   and 256) bitwise equal to the route's ``PackedForward`` at N = 1, 7,
+   64 and 257, each case 20 times queued back to back, then swapped to a
+   second net and equal to its ``PackedForward``; one graph a stage or
+   shard; the launches of one call, counters zeroed just before and read
+   just after, equal to the plan's (a stage cut through a fused pair
+   launches K3/K4 instead of K5); each pipeline's ``stage_times``. The
+   engine's ``classify_batch`` through the bulk route (launches counted)
+   and the slot route, bitwise equal to ``PackedForward``. On the tuned
+   plan, the slot route and the bulk route (1 shard x 8 and x 256) timed
+   at N = 16, 256 and 4096 (img/s, host wall, the profiler's device busy
+   time and idle share), beside one graph at 4096 images in every route
+   and the side-by-side forms at 4096.
 6. The XNOR LM at the full ``configs/xnor_lm_tiny.py::CONFIG``: hold the
    probe ``forward_packed`` logits of modes "bw" and "xnor" bitwise equal
    on the card; serve 16 requests through 4 slots in mode "bw" (K6) and in
@@ -266,6 +283,16 @@ FLEET_RATE_HZ = 2000.0
 FLEET_SATURATE_HZ = 1e6
 FLEET_BURST = 4 * FLEET_REQUESTS
 FLEET_TIMEOUT_S = 120.0
+# the multi-device forwards (phase 5b): batch sizes of the bitwise checks,
+# the micro-batches of the stage pipeline and of the data-parallel
+# forward, the repeats of each case, the batch sizes timed, and the
+# (shards, stages) layouts of the data-parallel forward
+MULTI_N = (1, 7, 64, 257)
+MULTI_PIPE_MB = (1, 8)
+MULTI_DATA_MB = (8, 256)
+MULTI_REPEATS = 20
+MULTI_TIMED_N = (16, 256, 4096)
+MULTI_GRIDS = ((1, 1), (2, 1), (2, 2))
 LM_REQUESTS = 16
 LM_PROMPT = 8
 LM_MAX_NEW = 16
@@ -1592,6 +1619,306 @@ def fleet_phase(reference, plan) -> None:
     print(f"card: {smi('name,power.limit')}")
 
 
+def plan_launches(path: str, groups) -> dict:
+    """Kernel launches of one micro-batch through ``groups`` (one
+    ``plan_layer_groups`` tuple per stage) on ``path``: a fused pair
+    launches K5, any other binary conv K3/K4 (direct), an FC K1/K2;
+    CONV-1 is plain PyTorch."""
+    want: dict = {}
+    for stage in groups:
+        for g in stage:
+            if len(g) == 2:
+                k = f"xnor_conv2d_pair_{path}"
+            elif 1 <= g[0] <= 5:
+                k = f"xnor_conv2d_{path}"
+            elif g[0] >= 6:
+                k = f"xnor_matmul_{path}"
+            else:
+                continue
+            want[k] = want.get(k, 0) + 1
+    return want
+
+
+def multi_forwards(packed, plan, dev):
+    """(name, forward, per-stage groups, rows of one launch unit) of
+    every stage-pipelined and data-parallel form of phase 5b, built one
+    at a time (the caller closes each before the next, so the pooled
+    streams stay few). Several shards or stages share ``dev``."""
+    from repro_torch.parallel.bcnn_data_parallel import make_sharded_forward
+    from repro_torch.parallel.bcnn_pipeline import make_pipelined_forward
+    for n_stages in (1, 2, 3):
+        for mb in MULTI_PIPE_MB:
+            fwd = make_pipelined_forward(packed, n_stages=n_stages,
+                                         micro_batch=mb, devices=[dev],
+                                         plan=plan)
+            yield (f"pipeline {n_stages} stage(s), micro-batch {mb}", fwd,
+                   fwd.fused_groups(), mb, mb)
+    for shards, n_stages in MULTI_GRIDS:
+        for mb in MULTI_DATA_MB:
+            fwd = make_sharded_forward(packed, data_shards=shards,
+                                       n_stages=n_stages, micro_batch=mb,
+                                       devices=[dev] * shards, plan=plan)
+            yield (f"data {shards} shard(s) x {n_stages} stage(s), "
+                   f"micro-batch {mb}", fwd, fwd.plan.fused_groups,
+                   fwd.plan.chunk, mb)
+
+
+def multi_checks(packed_a, packed_b, x, plan, dev, repeats: int) -> dict:
+    """Every form of ``multi_forwards`` on route ``plan`` against the
+    route's ``PackedForward`` on ``dev``: bitwise equal at every N of
+    ``MULTI_N``, ``repeats`` calls each queued back to back before any
+    is read, one graph a stage or shard (``cache_size`` 1), the launches
+    of one call at N = 64 (counters zeroed just before and read just
+    after) equal to the plan's, then swapped to ``packed_b`` and bitwise
+    equal to its ``PackedForward`` again with no new capture. Returns the
+    launches seen by kernel name."""
+    from repro_torch.core import bcnn
+    counters = bcnn_counters()
+    route = f"{plan.path}{' fused' if plan.conv_fusion else ''}"
+    refs = []
+    for pk in (packed_a, packed_b):
+        ref = bcnn.make_packed_forward(pk, plan=plan, device=dev)
+        refs.append({n: ref(x[:n]) for n in MULTI_N})
+        ref.close()
+    check(not torch.equal(refs[0][257], refs[1][257]),
+          f"[{route}] the two nets give the same logits")
+    seen_all: dict = {}
+    for name, fwd, groups, granule, mb in multi_forwards(packed_a, plan,
+                                                        dev):
+        tag = f"[multi {route}] {name}"
+        for n in MULTI_N:
+            outs = [fwd(x[:n]) for _ in range(repeats)]
+            bad = [i for i, o in enumerate(outs)
+                   if not torch.equal(o, refs[0][n])]
+            check(not bad, f"{tag}: N={n}, calls {bad} differ from "
+                           f"PackedForward")
+        check(fwd.cache_size() == 1, f"{tag}: cache_size "
+                                     f"{fwd.cache_size()}")
+        for fn in counters.values():
+            fn.launches = 0
+        fwd(x[:64])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seen = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        units = -(-64 // granule) * granule // mb
+        want = {k: v * units
+                for k, v in plan_launches(plan.path, groups).items()}
+        check(seen == want, f"{tag}: launches {seen}, expected {want}")
+        for k, v in seen.items():
+            seen_all[k] = seen_all.get(k, 0) + v
+        fwd.swap(packed_b)
+        for n in (7, 257):
+            outs = [fwd(x[:n]) for _ in range(3)]
+            check(all(torch.equal(o, refs[1][n]) for o in outs),
+                  f"{tag}: after the swap, N={n} differs from the new "
+                  f"net's PackedForward")
+        check(fwd.cache_size() == 1, f"{tag}: the swap captured anew")
+        times = ""
+        if hasattr(fwd, "stage_times"):
+            times = ", stage ms " + "/".join(
+                f"{t * 1e3:.4f}" for t in fwd.stage_times(x, reps=20))
+        fwd.close()
+        print(f"{tag}: bitwise == PackedForward at N {list(MULTI_N)} x "
+              f"{repeats} and after a swap; cache_size 1; one call at "
+              f"N=64 launched {seen} ({units} micro-batch(es)){times}")
+    return seen_all
+
+
+def device_busy(fn, n: int = 2):
+    """(ms per call of the union of device activity, ms per call of the
+    sum of kernel and copy times, the top kernels as (ms per call, count
+    per call, name)) from torch.profiler over ``n`` calls of ``fn``; the
+    union counts work that overlaps on several streams once. None when
+    the profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        return None
+    union, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            union += hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    union += hi - lo
+    top = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            top.append((t / n / 1e3, ev.count / n, ev.key))
+    return (union / n / 1e3, sum(e - s for s, e in spans) / n / 1e3,
+            sorted(top, reverse=True)[:6])
+
+
+def timed_row(fn, images: int, what: str, n: int = 3,
+              kernels: bool = False) -> dict:
+    """Host wall per call of ``fn`` (``n`` calls after one warm call,
+    ending in a sync), images/s, the device's busy ms (``device_busy``,
+    a separate profiled run: a device-bound call's idle share can come
+    out a little below 0) and idle share 1 - busy / wall; printed as one
+    row, with the top kernels when ``kernels``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    busy = device_busy(fn)
+    row = {"wall_ms": wall, "img_s": images / wall * 1e3,
+           "busy_ms": None if busy is None else busy[0],
+           "idle": None if busy is None else 1 - busy[0] / wall}
+    dev = ("device not measured (the profiler recorded no device "
+           "activity)" if busy is None else
+           f"device busy {busy[0]:.4f} ms (kernel + copy sum "
+           f"{busy[1]:.4f}), idle share {row['idle']:.3f}")
+    print(f"  {what}: {row['img_s']:.1f} img/s, wall {wall:.4f} ms, {dev}")
+    if kernels and busy is not None:
+        for ms, count, key in busy[2]:
+            print(f"      {ms:.4f} ms  x{count:g}  {key[:90]}")
+    return row
+
+
+def multi_phase(reference, tuned) -> None:
+    """Phase 5b: the multi-device forwards (``parallel/bcnn_pipeline.py``,
+    ``parallel/bcnn_data_parallel.py``) and ``classify_batch``'s bulk
+    route at full Table 2 width, every stage and shard side by side on
+    the one card, each on its own stream. In all four routes
+    (``multi_checks``): the pipeline at 1, 2 and 3 stages and the
+    data-parallel forward at 1 and 2 shards and 2 x 2, bitwise equal to
+    the route's ``PackedForward``, before and after a swap; then the
+    engine's ``classify_batch`` through the bulk and slot routes (bitwise
+    equal, one capture each, the bulk route's launches counted), and on
+    the ``tuned`` plan both routes timed at ``MULTI_TIMED_N`` beside one
+    graph at 4096 images in every route and the side-by-side forms on
+    device input at 4096 images."""
+    from repro_torch.configs import bcnn_cifar10 as pc
+    from repro_torch.core import bcnn
+    from repro_torch.core import execution_plan as xp
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.parallel.bcnn_data_parallel import make_sharded_forward
+    from repro_torch.parallel.bcnn_pipeline import make_pipelined_forward
+    from repro_torch.serve.bcnn_engine import BCNNEngine
+
+    dev = torch.device("cuda")
+    _, packed_a, _, _ = reference
+    packed_b = bcnn.fold_model(bcnn.params_from_numpy(
+        bcnn.numpy_params(SEED + 1)))
+    x_np, _ = SyntheticImages(global_batch=max(MULTI_TIMED_N),
+                              seed=SEED + 3).batch(0)
+    x = torch.from_numpy(x_np).to(dev)
+    card = smi("name,power.limit")
+    t0 = time.perf_counter()
+    for fusion in (False, True):
+        for path in ("mxu", "vpu"):
+            plan = xp.build_plan(packed_a, path=path, conv_fusion=fusion,
+                                 device=dev)
+            multi_checks(packed_a, packed_b, x, plan, dev, MULTI_REPEATS)
+    print(f"[multi] four routes checked in {time.perf_counter() - t0:.1f} "
+          f"s; {card}")
+
+    counters = bcnn_counters()
+    route = f"{tuned.path}{' fused' if tuned.conv_fusion else ''}"
+    for stages in (1, 2):
+        eng = BCNNEngine.from_packed(
+            packed_a, n_slots=N_SLOTS, plan=tuned, device=dev,
+            pipeline_stages=stages, data_shards=1,
+            data_micro_batch=pc.DATA_MICRO_BATCH)
+        tag = f"[engine {route}, {stages} stage(s)]"
+        check(eng.batch_cache_size == 0, f"{tag} bulk forward ran early")
+        ref = bcnn.make_packed_forward(packed_a, plan=tuned, device=dev)
+        want = {n: ref(x[:n]).cpu().numpy() for n in MULTI_N}
+        ref.close()
+        eng.classify_batch(x_np[:pc.DATA_MICRO_BATCH])  # capture first
+        for fn in counters.values():
+            fn.launches = 0
+        bulk = eng.classify_batch(x_np[:257])
+        seen = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        units = -(-257 // eng.batch_threshold)
+        expect = {k: v * units for k, v in plan_launches(
+            tuned.path, eng.batch_forward.plan.fused_groups).items()}
+        check(seen == expect and eng.steps_executed == 0,
+              f"{tag} bulk route launched {seen}, expected {expect}")
+        slots = eng.classify_batch(x_np[:7])
+        check(np.array_equal(bulk, want[257])
+              and np.array_equal(slots, want[7]),
+              f"{tag} classify_batch differs from PackedForward")
+        check(eng.batch_cache_size == 1 and eng.step_cache_size == 1
+              and eng.steps_executed == 2,
+              f"{tag} batch_cache_size {eng.batch_cache_size}, "
+              f"step_cache_size {eng.step_cache_size}, steps "
+              f"{eng.steps_executed}")
+        eng.close()
+        print(f"{tag} classify_batch: 257 images by the bulk route "
+              f"({units} chunks, launches {seen}) and 7 by the slots (2 "
+              f"steps), bitwise == PackedForward; batch_cache_size 1, "
+              f"step_cache_size 1")
+
+    print(f"[multi timing] plan {route}; host wall per call (images in "
+          f"host memory for the engines, on the card for the forwards), "
+          f"device busy = union of kernel and copy intervals "
+          f"(torch.profiler); {card}")
+    engines = {"slot route, 4 slots": dict(),
+               f"bulk route, 1 shard x {pc.DATA_MICRO_BATCH}": dict(
+                   data_shards=1, data_micro_batch=pc.DATA_MICRO_BATCH,
+                   batch_threshold=1),
+               "bulk route, 1 shard x 256": dict(
+                   data_shards=1, data_micro_batch=256, batch_threshold=1)}
+    for what, kw in engines.items():
+        eng = BCNNEngine.from_packed(packed_a, n_slots=N_SLOTS, plan=tuned,
+                                     device=dev, **kw)
+        for n in MULTI_TIMED_N:
+            timed_row(lambda n=n: eng.classify_batch(x_np[:n]), n,
+                      f"{what}, N={n}")
+        eng.close()
+    n = max(MULTI_TIMED_N)
+    for fusion in (False, True):            # the plan at the bulk batch
+        for path in ("mxu", "vpu"):
+            plan = xp.build_plan(packed_a, path=path, conv_fusion=fusion,
+                                 device=dev)
+            fwd = bcnn.make_packed_forward(packed_a, plan=plan, device=dev)
+            timed_row(lambda: fwd(x[:n]), n,
+                      f"PackedForward {path}{' fused' if fusion else ''}, "
+                      f"one graph at N={n}", kernels=True)
+            fwd.close()
+    forms = {
+        "PackedForward, one graph at N": lambda: bcnn.make_packed_forward(
+            packed_a, plan=tuned, device=dev),
+        "data 2 shards x 128 (side by side)": lambda: make_sharded_forward(
+            packed_a, data_shards=2, micro_batch=128, devices=[dev] * 2,
+            plan=tuned),
+        "data 1 shard x 2 stages x 256": lambda: make_sharded_forward(
+            packed_a, data_shards=1, n_stages=2, micro_batch=256,
+            devices=[dev], plan=tuned),
+        "pipeline 2 stages x 256": lambda: make_pipelined_forward(
+            packed_a, n_stages=2, micro_batch=256, devices=[dev],
+            plan=tuned),
+        "pipeline 3 stages x 256": lambda: make_pipelined_forward(
+            packed_a, n_stages=3, micro_batch=256, devices=[dev],
+            plan=tuned),
+    }
+    for what, make in forms.items():
+        fwd = make()
+        timed_row(lambda: fwd(x[:n]), n, f"{what}, N={n}",
+                  kernels="pipeline" in what)
+        if hasattr(fwd, "stage_times"):
+            print(f"    stage_times (ms, micro-batch 256): " + ", ".join(
+                f"{t * 1e3:.4f}" for t in fwd.stage_times(x, reps=20)))
+        fwd.close()
+    print(f"card: {card}")
+
+
 def lm_serve(cfg, packed, prompts, device, mode, path, swap_to=None):
     """Serve ``prompts`` through a 4-slot engine on ``device``; with
     ``swap_to``, hot-swap that packed net after ``LM_SWAP_AT`` steps and
@@ -2413,7 +2740,9 @@ def main() -> int:
     stats = kernel_phase(Bound())
     reference = cpu_reference()
     launches = serve_phase(reference)
-    fleet_phase(reference, tune_phase(reference))
+    tuned = tune_phase(reference)
+    fleet_phase(reference, tuned)
+    multi_phase(reference, tuned)
     launches["binary_weight_matmul"] = lm_phase()
     launches["flash_attention"], launches["flash_attention_tc"] = (
         dense_phase())

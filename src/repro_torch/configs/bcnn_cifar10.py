@@ -56,3 +56,19 @@ AUTOSCALE_COOLDOWN_S = 0.5
 AUTOSCALE_INTERVAL_S = 0.02
 ONLINE_RESERVE = 1
 BULK_CHUNK = 2
+
+# Stage-pipelined step (parallel/bcnn_pipeline.py, launch/serve_bcnn.py
+# --pipeline-stages): the number of cost-balanced stages the packed
+# 9-layer forward is cut into (1 = the single PackedForward, the default)
+# and the micro-batch granule streamed through them.
+PIPELINE_STAGES = 1
+PIPELINE_MICRO_BATCH = 1
+
+# Data-parallel bulk route (parallel/bcnn_data_parallel.py, --data-shards):
+# the paper's large-batch Fig. 7 scenario. DATA_SHARDS replicas of the
+# packed network split a bulk batch (0 = no bulk route, slots only);
+# DATA_MICRO_BATCH is each shard's granule, so DATA_SHARDS ×
+# DATA_MICRO_BATCH is the one chunk shape, and the default
+# classify_batch routing threshold.
+DATA_SHARDS = 0
+DATA_MICRO_BATCH = 8

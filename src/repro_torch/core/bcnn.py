@@ -429,13 +429,35 @@ def assert_swap_compatible(old: BCNNPacked, new: BCNNPacked) -> tuple:
     return tuple(x for x in ln if _is_weight(x))
 
 
-class _Step(NamedTuple):
-    """One captured forward: its graph, the input and output buffers it
-    reads and writes, and the launches one replay runs."""
-    graph: "torch.cuda.CUDAGraph"
-    x: torch.Tensor
-    y: torch.Tensor
-    launches: dict
+class _Captured:
+    """One function captured as a CUDA graph at one input: the static
+    input buffer ``x`` it reads, the output ``y`` it writes, and the
+    launches one replay runs (``kernels/launch_count.py``).
+
+    Built on ``stream``, which must be current: a clone of the input, one
+    eager run (it sets each kernel's attributes and fills
+    ``csrc/bits.cuh::launch_cluster``'s table outside any capture), then
+    the capture in thread-local mode, so another thread may serve while
+    this one captures. A failed capture or replay raises; nothing falls
+    back to eager launches. ``PackedForward`` and the stages of
+    ``parallel/bcnn_pipeline.py::PipelinedForward`` hold these."""
+
+    def __init__(self, fn, x: torch.Tensor, stream):
+        self.x = x.clone()
+        fn(self.x)
+        self.graph = torch.cuda.CUDAGraph()
+        with launch_count.recording() as launches:
+            with torch.cuda.graph(self.graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.y = fn(self.x)
+        self.launches = launches
+
+    def replay(self) -> torch.Tensor:
+        """Run the graph on what ``x`` holds and count its launches;
+        returns ``y``, which the next replay overwrites."""
+        self.graph.replay()
+        launch_count.add_all(self.launches)
+        return self.y
 
 
 class PackedForward:
@@ -493,7 +515,7 @@ class PackedForward:
             self.stream = streams.acquire(self.device)
             self._release = weakref.finalize(self, streams.release,
                                              self.stream)
-        self._steps: dict[tuple, _Step] = {}
+        self._steps: dict[tuple, _Captured] = {}
         self._shapes: set[tuple] = set()
         self._closed = False
 
@@ -511,40 +533,43 @@ class PackedForward:
     def __call__(self, x01: torch.Tensor) -> torch.Tensor:
         self._check_open()
         x01 = x01.to(self.device)
-        key = (tuple(x01.shape), x01.dtype)
         if self.stream is None:
-            self._shapes.add(key)
-            return forward_packed(self._packed, x01, plan=self._plan)
+            return self._run(x01)
         caller = torch.cuda.current_stream(self.device)
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             if caller != self.stream:
                 self.stream.wait_stream(caller)
-            step = self._steps.get(key)
-            if step is None:
-                step = self._capture(key, x01)
-            step.x.copy_(x01)
-            step.graph.replay()
-            launch_count.add_all(step.launches)
-            out = step.y.clone()
+            out = self._run(x01).clone()
         if caller != self.stream:
             caller.wait_stream(self.stream)
             out.record_stream(caller)
         return out
 
-    def _capture(self, key: tuple, x01: torch.Tensor) -> _Step:
-        """Capture the forward at ``x01``'s shape (on ``stream``)."""
-        x_static = x01.clone()
-        forward_packed(self._packed, x_static, plan=self._plan)
-        graph = torch.cuda.CUDAGraph()
-        with launch_count.recording() as launches:
-            with torch.cuda.graph(graph, stream=self.stream,
-                                  capture_error_mode="thread_local"):
-                y_static = forward_packed(self._packed, x_static,
-                                          plan=self._plan)
-        step = _Step(graph, x_static, y_static, launches)
-        self._steps[key] = step
-        self._shapes.add(key)
-        return step
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The function a graph captures (eager on the CPU)."""
+        return forward_packed(self._packed, x, plan=self._plan)
+
+    def _run(self, x: torch.Tensor, loaded=None) -> torch.Tensor:
+        """``_forward(x)`` on the current stream, which on the card must be
+        ``stream``; the caller orders that stream after the work that made
+        ``x`` and before the work that reads the result. On the card: copy
+        ``x`` (any device) into the graph of its shape (captured at first
+        use), record the CUDA event ``loaded`` once it is copied (``x`` may
+        then be overwritten), replay, and return the graph's output
+        buffer, valid until the next replay at that shape."""
+        key = (tuple(x.shape), x.dtype)
+        if self.stream is None:
+            self._shapes.add(key)
+            return self._forward(x)
+        step = self._steps.get(key)
+        if step is None:
+            step = _Captured(self._forward, x.to(self.device), self.stream)
+            self._steps[key] = step
+            self._shapes.add(key)
+        step.x.copy_(x)
+        if loaded is not None:
+            loaded.record(self.stream)
+        return step.replay()
 
     def cache_size(self) -> int:
         """CUDA graphs captured, one per input shape (on the CPU: input

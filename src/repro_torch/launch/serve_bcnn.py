@@ -1,7 +1,8 @@
 """Streaming BCNN serving on the GPU — the paper's online
 individual-request scenario (§6.3, Fig. 7) as a runnable service loop
-(counterpart of ``repro/launch/serve_bcnn.py``: the single engine, the
-slot route of ``--offline``, and the replica fleet).
+(counterpart of ``repro/launch/serve_bcnn.py``: the single engine, its
+stage-pipelined step, ``--offline``'s bulk and slot routes, and the
+replica fleet).
 
 Builds the 9-layer CIFAR-10 BCNN — random weights folded on the spot, or
 trained weights from a deployment artifact (``--artifact``, the format of
@@ -28,6 +29,10 @@ Usage:
         --requests 4                   # plain PyTorch path, no GPU
     PYTHONPATH=src python -m repro_torch.launch.serve_bcnn --offline \\
         --requests 64                  # one batch through classify_batch
+    PYTHONPATH=src python -m repro_torch.launch.serve_bcnn \\
+        --pipeline-stages 2            # the step cut into 2 stages
+    PYTHONPATH=src python -m repro_torch.launch.serve_bcnn --data-shards 1 \\
+        --offline --requests 256       # the bulk data-parallel route
     PYTHONPATH=src python -m repro_torch.launch.serve_bcnn --replicas 2 \\
         --rate 200 --rolling-swap      # FLEET: the router over 2 replicas,
         # mixed online + bulk Poisson traffic, the weights hot-swapped
@@ -36,8 +41,9 @@ Usage:
         --autoscale --max-replicas 2   # ELASTIC fleet (serve/autoscale.py)
 
 On the card every served step is one CUDA-graph replay (one graph per
-replica, ``step_cache_size`` 1, printed), and a swap copies the new
-weights into the captured buffers in place.
+replica, or per pipeline stage, ``step_cache_size`` 1, printed), the bulk
+route holds one graph per shard or stage (``batch_cache_size`` 1), and a
+swap copies the new weights into the captured buffers in place.
 """
 from __future__ import annotations
 
@@ -259,10 +265,30 @@ def main(argv=None) -> int:
                     help="fuse CONV-3/4 and CONV-5/6 into the K5 kernel "
                          "(bit-exact; the bit map between the two convs "
                          "stays on chip)")
+    ap.add_argument("--pipeline-stages", type=int,
+                    default=pc.PIPELINE_STAGES,
+                    help="cut the 9-layer forward into N cost-balanced "
+                         "pipeline stages over the CUDA devices "
+                         "(parallel/bcnn_pipeline.py; stages share a "
+                         "card when there are fewer cards); 1 = one "
+                         "PackedForward")
+    ap.add_argument("--micro-batch", type=int,
+                    default=pc.PIPELINE_MICRO_BATCH,
+                    help="pipeline streaming granule (with "
+                         "--pipeline-stages)")
+    ap.add_argument("--data-shards", type=int, default=pc.DATA_SHARDS,
+                    help="replicate the packed network over N devices and "
+                         "shard bulk batches across them "
+                         "(parallel/bcnn_data_parallel.py); 0 = disabled")
+    ap.add_argument("--data-micro-batch", type=int,
+                    default=pc.DATA_MICRO_BATCH,
+                    help="per-shard granule of the data-parallel forward "
+                         "(with --data-shards)")
     ap.add_argument("--offline", action="store_true",
                     help="serve all --requests images as ONE batch "
-                         "through classify_batch (the slot route) instead "
-                         "of streaming them")
+                         "through classify_batch (the bulk route with "
+                         "--data-shards, else the slot route) instead of "
+                         "streaming them")
     ap.add_argument("--replicas", type=int, default=pc.ROUTER_REPLICAS,
                     help="serve through the fleet router (serve/router.py) "
                          "over N engine replicas, each stepped on its own "
@@ -341,23 +367,44 @@ def main(argv=None) -> int:
                                  conv_strategy=args.conv_strategy,
                                  conv_fusion=args.conv_fusion, plan=plan,
                                  device=args.device,
+                                 pipeline_stages=args.pipeline_stages,
+                                 pipeline_micro_batch=args.micro_batch,
+                                 data_shards=args.data_shards,
+                                 data_micro_batch=args.data_micro_batch,
                                  history=max(4096, args.requests))
     where = (torch.cuda.get_device_name(eng.device)
              if eng.device.type == "cuda" else "cpu")
     print(f"engine on {where}: {args.slots} slots, path {eng.plan.path}, "
           f"conv strategy {eng.plan.conv_strategy[1]}, fusion "
           f"{'on' if eng.plan.conv_fusion else 'off'}")
+    if args.pipeline_stages > 1:
+        sp = eng.forward.plan
+        print(f"pipelined forward: {sp.n_stages} stages over "
+              f"{len(set(eng.forward.devices))} device(s), "
+              f"micro-batch {args.micro_batch}")
+        for s in range(sp.n_stages):
+            print(f"  stage {s}: {' + '.join(sp.stage_layers(s))}  "
+                  f"(cost {sp.stage_costs[s]:.3g})")
+    if eng.batch_forward is not None:
+        dp = eng.batch_forward.plan
+        print(f"data-parallel bulk forward: {dp.data_shards} shard(s) × "
+              f"{dp.n_stages} stage(s), micro-batch {dp.micro_batch} "
+              f"(chunk {dp.chunk}; classify_batch routes batches >= "
+              f"{eng.batch_threshold})")
     if args.offline:
-        eng.classify_batch(x)           # warm: the step's one capture
+        eng.classify_batch(x)           # warm: the route's captures
         t0 = time.perf_counter()
         logits = eng.classify_batch(x)
         dt = time.perf_counter() - t0
         if logits.shape != (args.requests, pc.N_CLASSES):
             raise SystemExit(f"offline logits {logits.shape}")
+        bulk = (eng.batch_forward is not None
+                and args.requests >= eng.batch_threshold)
         print(f"offline batch of {args.requests}: "
               f"{args.requests / dt:.1f} img/s ({dt * 1e3:.1f} ms wall, "
-              f"via the slot path; step_cache_size "
-              f"{eng.step_cache_size})")
+              f"via the {'bulk' if bulk else 'slot'} path; "
+              f"step_cache_size {eng.step_cache_size}, batch_cache_size "
+              f"{eng.batch_cache_size})")
         return 0
     if args.rate > 0:
         d = drive_poisson(eng, x, args.rate, seed=args.seed)

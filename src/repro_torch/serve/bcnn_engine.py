@@ -1,9 +1,10 @@
 """Streaming BCNN inference service — the paper's online-request scenario
-(counterpart of ``repro/serve/bcnn_engine.py``, single-device slot path).
+— and its bulk route for the large-batch one (counterpart of
+``repro/serve/bcnn_engine.py``).
 
 The paper's headline result (§6.3, Fig. 7) is batch-size-insensitive
 throughput for online individual requests. This engine serves the packed
-deployment forward (``core/bcnn.py::make_packed_forward``) that way:
+deployment forward that way:
 
 * a fixed set of ``n_slots`` image slots stepped continuously;
 * FIFO admission (``serve/slots.py``) the moment a slot frees;
@@ -16,18 +17,31 @@ deployment forward (``core/bcnn.py::make_packed_forward``) that way:
 * per-request latency (submit → done) and throughput accounting
   (``serve/slots.py::latency_stats``);
 * ``swap_packed``: weights hot-swapped under live traffic with no new
-  capture; ``classify_batch``: a batch of images through the slots.
+  capture, on every forward the engine owns.
 
-On the card each engine owns a ``torch.cuda.Stream`` (its forward's):
-the slot copy, the graph replay and the logits copy all run on it, so the
+The step's forward is the single-device ``core/bcnn.py::PackedForward``
+or — with ``from_packed(pipeline_stages=N)`` — the stage-pipelined
+``parallel/bcnn_pipeline.py::PipelinedForward``, the software form of
+the paper's per-layer pipeline; the contracts above hold for both.
+
+The paper's other Fig. 7 scenario — "static data in large batch sizes"
+— is ``classify_batch``'s bulk route: with ``from_packed(data_shards=N)``
+the engine also owns a batch-sharded data-parallel forward
+(``parallel/bcnn_data_parallel.py::ShardedForward``), and a batch of at
+least ``batch_threshold`` images bypasses the slots, while smaller ones
+stream through them.
+
+On the card each engine owns a ``torch.cuda.Stream`` (its
+``PackedForward``'s, or a pooled one of its own for a pipelined step):
+the slot copy, the step and the logits copy all run on it, and the
+pipelined and bulk forwards order their own streams after it, so the
 replicas of ``serve/router.py`` do not wait for one another's steps.
 
 ``from_packed`` builds the engine on the GPU unless ``device="cpu"`` is
 passed; without a GPU it raises rather than serving on the CPU. With
 ``autotune=True`` it first measures a plan on that device
-(``kernels/autotune.py::autotune_packed``). The pipelined and
-data-parallel forwards of the reference (and ``classify_batch``'s bulk
-route through the latter) come with a later slice of the port.
+(``kernels/autotune.py::autotune_packed``); every forward of the engine
+shares that one plan.
 """
 from __future__ import annotations
 
@@ -40,7 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bcnn
-from repro_torch.core.execution_plan import resolve_device
+from repro_torch.core.execution_plan import build_plan, resolve_device
 from repro_torch.kernels import streams
 from repro_torch.serve.slots import SlotScheduler, latency_stats
 
@@ -50,10 +64,11 @@ class BCNNEngine:
 
     ``forward_fn``: ``(n_slots, H, W, C) float32 tensor on device →
     (n_slots, n_classes) tensor``. A ``core/bcnn.py::PackedForward`` (from
-    ``from_packed``) brings its stream, ``cache_size()`` and ``swap``; any
-    other callable is opaque: it runs on a stream of the engine's own,
-    ``step_cache_size`` counts the input shapes it was called at, and it
-    cannot be hot-swapped.
+    ``from_packed``) brings its stream, ``cache_size()`` and ``swap``; a
+    ``PipelinedForward`` brings ``cache_size()`` and ``swap`` and runs
+    after a stream of the engine's own; any other callable is opaque: it
+    runs on a stream of the engine's own, ``step_cache_size`` counts the
+    input shapes it was called at, and it cannot be hot-swapped.
     """
 
     def __init__(self, forward_fn: Callable, *, n_slots: int = 8,
@@ -81,28 +96,73 @@ class BCNNEngine:
         self._steps = 0
         self._plan = None
         self._n_classes = None              # known for from_packed engines
+        self._batch_fn = None               # from_packed(data_shards=N)
+        self._batch_threshold = 0
 
     @classmethod
     def from_packed(cls, packed: bcnn.BCNNPacked, *, n_slots: int = 8,
                     path: str = "auto", conv_strategy: str | None = None,
                     conv_fusion: bool | None = None, plan=None,
                     autotune: bool = False, device="cuda",
+                    pipeline_stages: int = 1,
+                    pipeline_micro_batch: int = 1,
+                    pipeline_devices=None,
+                    data_shards: int = 0,
+                    data_micro_batch: int = 8,
+                    batch_threshold: int | None = None,
                     **kw) -> "BCNNEngine":
         """Engine over the packed deployment forward on ``device``. The
         per-knob kwargs build the ``ExecutionPlan`` unless ``plan`` is
         given ("auto" path: "mxu" on the GPU, "xla" on the CPU);
         ``autotune=True`` without a ``plan`` measures one on ``device``
-        at the engine's batch of ``n_slots`` images."""
+        at the engine's batch of ``n_slots`` images.
+
+        ``pipeline_stages > 1`` steps the slots through the stage-pipelined
+        forward (``parallel/bcnn_pipeline.py::make_pipelined_forward``)
+        instead of ``PackedForward``: the 9 layers cost-balanced onto
+        ``pipeline_devices`` (None: every CUDA device, or the CPU for
+        ``device="cpu"``) in ``pipeline_micro_batch`` granules.
+
+        ``data_shards >= 1`` adds the bulk route of ``classify_batch``: a
+        data-parallel forward
+        (``parallel/bcnn_data_parallel.py::make_sharded_forward``, with
+        ``n_stages=pipeline_stages``) over every CUDA device (the CPU
+        ``data_shards`` times for ``device="cpu"``), taken by batches of
+        at least ``batch_threshold`` images (default one chunk,
+        ``data_shards × data_micro_batch``). 0 (the default) disables it.
+        """
+        device = resolve_device(device)
         if autotune and plan is None:
             from repro_torch.kernels.autotune import autotune_packed
             plan = autotune_packed(packed, device=device, batch=n_slots)
-        fwd = bcnn.make_packed_forward(packed, path=path,
-                                       conv_strategy=conv_strategy,
-                                       conv_fusion=conv_fusion, plan=plan,
-                                       device=device)
+        if plan is None:
+            plan = build_plan(packed, path=path, conv_strategy=conv_strategy,
+                              conv_fusion=conv_fusion, device=device)
+        cpu = device.type == "cpu"
+        if pipeline_stages > 1:
+            from repro_torch.parallel.bcnn_pipeline import \
+                make_pipelined_forward
+            if pipeline_devices is None and cpu:
+                pipeline_devices = [device]
+            fwd = make_pipelined_forward(
+                packed, n_stages=pipeline_stages,
+                micro_batch=pipeline_micro_batch, devices=pipeline_devices,
+                plan=plan)
+        else:
+            fwd = bcnn.make_packed_forward(packed, plan=plan, device=device)
         eng = cls(fwd, n_slots=n_slots, device=fwd.device, **kw)
-        eng._plan = fwd.plan
+        eng._plan = plan
         eng._n_classes = packed.fc3_w_words.shape[0]
+        if data_shards >= 1:
+            from repro_torch.parallel.bcnn_data_parallel import \
+                make_sharded_forward
+            eng._batch_fn = make_sharded_forward(
+                packed, data_shards=data_shards,
+                micro_batch=data_micro_batch, n_stages=pipeline_stages,
+                devices=[device] * data_shards if cpu else None, plan=plan)
+            eng._batch_threshold = (eng._batch_fn.plan.chunk
+                                    if batch_threshold is None
+                                    else batch_threshold)
         return eng
 
     @property
@@ -112,13 +172,15 @@ class BCNNEngine:
 
     @property
     def plan(self):
-        """The ``core/execution_plan.py::ExecutionPlan`` of the step, or
+        """The ``core/execution_plan.py::ExecutionPlan`` every forward of
+        the engine shares (slot step, pipeline stages, bulk route), or
         None for an opaque ``forward_fn``."""
         return self._plan
 
     @property
     def forward(self) -> Callable:
-        """The step's forward (a ``core/bcnn.py::PackedForward`` for
+        """The step's forward (a ``core/bcnn.py::PackedForward`` or a
+        ``parallel/bcnn_pipeline.py::PipelinedForward`` for
         ``from_packed`` engines)."""
         return self._step_fn
 
@@ -186,16 +248,17 @@ class BCNNEngine:
         """Hot-swap the served weights under live traffic, no new capture.
 
         * the replacement must be shape/static-identical to the served
-          net (``core/bcnn.py::assert_swap_compatible``), checked before
-          anything moves: a rejected swap leaves the engine untouched;
+          net (``core/bcnn.py::assert_swap_compatible``), checked against
+          the step's forward and the bulk forward before anything moves:
+          a rejected swap leaves the engine untouched;
         * slots occupied at swap time are drained first, on the pre-swap
           weights, and their logits returned ({} in the usual case: slots
           only stay occupied inside ``step``);
         * queued (not yet admitted) requests are served with the new
           weights;
-        * the forward copies the new weights into its own in place
-          (``PackedForward.swap``), so ``step_cache_size`` stays where it
-          was.
+        * every forward copies the new weights into its own in place, so
+          ``step_cache_size`` and ``batch_cache_size`` stay where they
+          were.
 
         An opaque ``forward_fn`` raises TypeError.
         """
@@ -203,11 +266,15 @@ class BCNNEngine:
             raise TypeError(
                 "this engine's forward does not support weight hot-swap; "
                 "build it with BCNNEngine.from_packed (core/bcnn.py::"
-                "PackedForward)")
+                "PackedForward / the pipelined or data-parallel forwards)")
         bcnn.assert_swap_compatible(self._step_fn.packed, new_packed)
+        if self._batch_fn is not None:
+            bcnn.assert_swap_compatible(self._batch_fn.packed, new_packed)
         drained = self._flush()         # pre-swap weights, consistently
         with self.on_stream():
             self._step_fn.swap(new_packed)
+            if self._batch_fn is not None:
+                self._batch_fn.swap(new_packed)
         self._n_classes = new_packed.fc3_w_words.shape[0]
         return drained
 
@@ -221,15 +288,21 @@ class BCNNEngine:
         return results
 
     def classify_batch(self, images: np.ndarray) -> np.ndarray:
-        """A batch of images → (N, n_classes) logits, in input order,
-        streamed through the slots exactly like individually submitted
-        requests (the reference's bulk data-parallel route comes with a
-        later slice). An empty batch is answered on the host: no step
+        """A batch of images → (N, n_classes) logits, in input order.
+
+        The paper's large-batch Fig. 7 scenario: a batch of at least
+        ``batch_threshold`` images (on an engine built with
+        ``from_packed(data_shards=...)``) bypasses the slots and runs
+        through the data-parallel bulk forward, one capture per plan for
+        any batch size. Smaller batches stream through the slots exactly
+        like individually submitted requests. Both routes give bitwise
+        equal logits. An empty batch is answered on the host: nothing
         runs.
 
-        Single-driver contract (as ``run``/``drive_poisson``): requests
-        already queued by another caller are served alongside, but their
-        logits are delivered to this loop and dropped."""
+        One caller drives the engine (as ``run``/``drive_poisson``): on
+        the slot route, requests already queued by another caller are
+        served alongside, but their logits are delivered to this loop and
+        dropped."""
         images = np.asarray(images, np.float32)
         if images.ndim != 1 + len(self.input_shape) or \
                 images.shape[1:] != self.input_shape:
@@ -237,16 +310,22 @@ class BCNNEngine:
                              f"{', '.join(map(str, self.input_shape))})")
         if len(images) == 0:
             return np.zeros((0, self._n_classes or 0), np.float32)
+        if self._batch_fn is not None and \
+                len(images) >= self._batch_threshold:
+            with self.on_stream():
+                return self._batch_fn(torch.from_numpy(images)).cpu().numpy()
         rids = [self.submit(img) for img in images]
         out = self.run()
         return np.stack([out[r] for r in rids])
 
     def close(self) -> None:
-        """Free the forward's graphs, weights and stream
-        (``PackedForward.close``) once the engine will not step again, as
-        a retired replica's."""
+        """Free the forwards' graphs, weights and streams (the step's and
+        the bulk route's) once the engine will not step again, as a
+        retired replica's."""
         if hasattr(self._step_fn, "close"):
             self._step_fn.close()
+        if self._batch_fn is not None:
+            self._batch_fn.close()
         if self._release is not None:
             self._release()
 
@@ -256,10 +335,32 @@ class BCNNEngine:
         return self._steps
 
     @property
+    def batch_forward(self):
+        """The bulk data-parallel forward
+        (``parallel/bcnn_data_parallel.py::ShardedForward``; its ``plan``
+        carries the shards / stages / micro-batch), or None when the
+        engine was built without ``data_shards``."""
+        return self._batch_fn
+
+    @property
+    def batch_threshold(self) -> int:
+        """The smallest batch ``classify_batch`` sends to the bulk forward
+        (0 when there is none)."""
+        return self._batch_threshold
+
+    @property
+    def batch_cache_size(self) -> int:
+        """Captures of the bulk forward (``ShardedForward.cache_size``): 0
+        before its first use, then 1 whatever batch sizes
+        ``classify_batch`` has seen."""
+        return 0 if self._batch_fn is None else self._batch_fn.cache_size()
+
+    @property
     def step_cache_size(self) -> int:
-        """Captured graphs of the step (``PackedForward.cache_size``), or
-        the input shapes an opaque forward was called at. The streaming
-        contract: 1 across any occupancy pattern and any swap."""
+        """Captured graphs of the step (``PackedForward.cache_size``; for a
+        pipelined step, the most any stage holds), or the input shapes an
+        opaque forward was called at. The streaming contract: 1 across any
+        occupancy pattern and any swap."""
         if hasattr(self._step_fn, "cache_size"):
             return int(self._step_fn.cache_size())
         return len(self._shapes)

@@ -30,10 +30,20 @@ from repro.core import bcnn_artifact as jart
 from repro.core import bconv as jbconv
 from repro.core import blinear as jblinear
 from repro_torch.core import bcnn, bcnn_artifact
+from repro_torch.core import execution_plan as xplan
 from repro_torch.kernels import _build, launch_count, streams
+from repro_torch.parallel import bcnn_data_parallel as bdp
+from repro_torch.parallel import bcnn_pipeline as bp
 from repro_torch.serve.bcnn_engine import BCNNEngine
 
 N_SLOTS = 3
+
+# the reference's engine variants (tests/test_bcnn_swap.py)
+VARIANTS = {
+    "plain": {},
+    "pipelined": {"pipeline_stages": 2, "pipeline_micro_batch": 1},
+    "data-parallel": {"data_shards": 1, "data_micro_batch": 2},
+}
 
 
 def jax_params(p) -> jbcnn.BCNNParams:
@@ -222,6 +232,70 @@ def test_swap_under_live_occupancy_sweep(nets, images):
     assert eng.step_cache_size == 1 and eng.forward.cache_size() == 1
 
 
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_swap_variants_under_live_occupancy_sweep(variant, nets, images):
+    """The reference's swap sweep on each engine variant: the step's and
+    the bulk forward's logits are the new net's after the swap, with no
+    new capture of either."""
+    _, tpk = nets[0]
+    _, tpk_b = nets[1]
+    eng = BCNNEngine.from_packed(tpk, n_slots=N_SLOTS, path="xla",
+                                 device="cpu", **VARIANTS[variant])
+    out = _occupancy_sweep(eng, images)
+    np.testing.assert_array_equal(np.stack([out[r] for r in sorted(out)]),
+                                  _forward(tpk, images))
+    if eng.batch_forward is not None:
+        np.testing.assert_array_equal(eng.classify_batch(images),
+                                      _forward(tpk, images))
+    sizes = (eng.step_cache_size, eng.batch_cache_size)
+    assert sizes == (1, 1 if eng.batch_forward is not None else 0)
+    assert eng.swap_packed(tpk_b) == {}
+    out = _occupancy_sweep(eng, images)
+    np.testing.assert_array_equal(np.stack([out[r] for r in sorted(out)]),
+                                  _forward(tpk_b, images))
+    if eng.batch_forward is not None:    # the bulk route swaps too
+        np.testing.assert_array_equal(eng.classify_batch(images),
+                                      _forward(tpk_b, images))
+    assert (eng.step_cache_size, eng.batch_cache_size) == sizes
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_swap_variants_drain_and_reject(variant, nets, images):
+    """Occupied slots drain on the old weights; a rejected swap (checked
+    against both forwards) changes neither, nor the cache sizes."""
+    _, tpk = nets[0]
+    _, tpk_b = nets[1]
+    eng = BCNNEngine.from_packed(tpk, n_slots=N_SLOTS, path="xla",
+                                 device="cpu", **VARIANTS[variant])
+    eng.warmup()
+    eng.classify_batch(images)           # bulk route where there is one
+    sizes = (eng.step_cache_size, eng.batch_cache_size)
+    assert sizes == (1, 1 if eng.batch_forward is not None else 0)
+    for case in ("static", "shape"):
+        with pytest.raises(ValueError, match=case):
+            eng.swap_packed(_mutations(tpk_b, "torch")[case])
+    assert (eng.step_cache_size, eng.batch_cache_size) == sizes
+    for fwd in (eng.forward, eng.batch_forward):
+        if fwd is not None:
+            for got, want in zip(bcnn.split_packed(fwd.packed)[0],
+                                 bcnn.split_packed(tpk)[0]):
+                assert torch.equal(got, want)
+    np.testing.assert_array_equal(eng.classify_batch(images),
+                                  _forward(tpk, images))
+    # admit without stepping, as ``step`` does before its forward: the
+    # swap drains these slots on the old weights
+    rids = [eng.submit(img) for img in images]
+    for i, req in eng.sched.admit():
+        eng._x_host[i] = torch.from_numpy(req.payload)
+    drained = eng.swap_packed(tpk_b)
+    assert sorted(drained) == rids and eng.sched.n_occupied == 0
+    np.testing.assert_array_equal(np.stack([drained[r] for r in rids]),
+                                  _forward(tpk, images))
+    np.testing.assert_array_equal(eng.classify_batch(images),
+                                  _forward(tpk_b, images))
+    assert (eng.step_cache_size, eng.batch_cache_size) == sizes
+
+
 def test_queued_requests_get_new_weights(nets, images):
     _, tpk = nets[0]
     _, tpk_b = nets[1]
@@ -351,6 +425,34 @@ def test_streams_never_hand_out_a_held_stream(monkeypatch):
     streams.release(held[7])
     streams.release(held[7])             # idempotent
     assert streams.acquire(torch.device("cuda")).stream_id == 7
+
+
+def test_close_releases_every_stage_stream(monkeypatch, nets):
+    """Each stage and shard holds a pooled stream of its own; ``close``
+    hands every one back. On a fake device "cuda" (the pool faked as
+    above, the weights left where they are), nothing launches."""
+    _, tpk = nets[0]
+    monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
+    monkeypatch.setattr(torch.cuda, "Event", lambda *a, **k: None)
+    monkeypatch.setattr(streams, "_HELD", set())
+    monkeypatch.setattr(xplan, "resolve_device", torch.device)
+    monkeypatch.setattr(bcnn, "_tree_map", lambda fn, obj: obj)
+    cuda = torch.device("cuda")
+    pipe = bp.make_pipelined_forward(tpk, n_stages=3, devices=[cuda])
+    assert len(pipe.streams) == len(streams._HELD) == 3
+    grid = bdp.make_sharded_forward(tpk, data_shards=2, n_stages=2,
+                                    devices=[cuda] * 2)
+    shards = bdp.make_sharded_forward(tpk, data_shards=2, devices=[cuda] * 2)
+    assert len(grid.streams) == 4 and len(shards.streams) == 2
+    assert len(streams._HELD) == 9
+    held = {(s.device_index, s.stream_id)
+            for f in (pipe, grid, shards) for s in f.streams}
+    assert held == streams._HELD
+    pipe.close()
+    assert len(streams._HELD) == 6
+    grid.close()
+    shards.close()
+    assert not streams._HELD
 
 
 def test_build_load_runs_one_build_for_racing_threads(monkeypatch):

@@ -53,7 +53,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.train.bcnn_train", "repro_torch.train.checkpoint",
             "repro_torch.train.optimizer", "repro_torch.train.tree",
             "repro_torch.data.pipeline",
-            "repro_torch.launch.train_bcnn"} <= set(modules)
+            "repro_torch.launch.train_bcnn", "repro_torch.core.throughput",
+            "repro_torch.parallel.pipeline",
+            "repro_torch.parallel.bcnn_pipeline",
+            "repro_torch.parallel.bcnn_data_parallel"} <= set(modules)
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {modules!r}:\n"
@@ -91,6 +94,14 @@ def test_cuda_entry_points_raise_without_gpu():
         bcnn.make_packed_forward(packed)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_bcnn.main(["--requests", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_bcnn.main(["--requests", "1", "--pipeline-stages", "2",
+                         "--data-shards", "1", "--offline"])
+    from repro_torch.parallel import bcnn_data_parallel, bcnn_pipeline
+    with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
+        bcnn_pipeline.make_pipelined_forward(packed, n_stages=2)
+    with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
+        bcnn_data_parallel.make_sharded_forward(packed)
     cfg = xnor_lm.XnorLMConfig(vocab_size=32, d_model=32, d_ff=32)
     lm = xnor_lm.fold(cfg, xnor_lm.init(cfg, torch.Generator().manual_seed(0)))
     with pytest.raises(RuntimeError, match="device='cpu'"):
