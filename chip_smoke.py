@@ -102,6 +102,22 @@ Phases, each fatal on failure (nothing is caught):
    ``TransformerServeModel`` (16 requests through 4 slots, one request's
    tokens equal to a hand-rolled decode loop, a mid-run hot-swap of a
    second seed's weights in place), and one decode step profiled.
+7b. The moe family at DeepSeek-V2-Lite's full width
+   (``configs/deepseek_v2_lite_16b.py``): (a) a two-layer float32 cut
+   (layer 0 MLA with the dense FFN, layer 1 MLA with the MoE) on the card
+   against the same port on the CPU, ``prefill`` and ``forward_train``
+   (logits and aux loss; 2 K7 simt launches a forward), under the routing
+   rule of ``MOE_ROUTE_MARGIN``; (b) the same at quant "binary_weights";
+   (c) ``prefill`` against an 8-token prompt fed through the absorbed
+   ``decode_step`` on the card; (d) the full 27-layer bf16 model's
+   ``prefill`` at (1, 4096) (27 K7 simt launches at hd 192), profiled,
+   with K7's share of the kernel time; (e) the same model served through
+   ``ServingEngine`` at 4 slots (no K7 launch in decode; request 0 equal
+   to a hand-rolled decode loop; a decode step profiled; a mid-run
+   hot-swap keeping every weight's storage); (f) DeepSeek-V2's 236B
+   config cut to 2 layers at full width, bf16, ``prefill`` at (1, 1024)
+   through K7 simt against the same cut with plain attention on the
+   card.
 8. Training (``train/bcnn_train.py``) at full Table 2 width: one train
    step at batch 64 from ``numpy_params`` latents on the card and on the
    CPU (loss, every gradient, Adam moments, running statistics and the
@@ -128,8 +144,9 @@ attention shape (B, Hq, Hkv, hd) = (1, 32, 8, 128), causal, S in {128,
 and at the ragged extras (2, 4, 2, 64) at S = 256, (1, 2, 1, 64) at S =
 200, both causal settings, (1, 4, 2, hd) at S = 300 for hd 32, 96, 112
 and 192, (1, 2, 1, 256) at S = 200 non-causal and (1, 2, 2, 33) at S = 65
-(rows the wrapper pads to 16 bytes), in float32 and bfloat16 (tolerances
-``FLASH_TOL``), each in the variant ``pick_variant`` chooses (printed
+(rows the wrapper pads to 16 bytes), in float32 and bfloat16, and at
+DeepSeek-V2-Lite's MLA shape (1, 16, 16, 192) at S = 4096, causal
+(``FLASH_MLA``), in bfloat16 only (tolerances ``FLASH_TOL``), each in the variant ``pick_variant`` chooses (printed
 from the launch counters): "tc" (``flash_attention_tc``, bf16 at hd 64 /
 128) on contiguous tensors and on the strided head-major views the model
 hands over, "simt" (``flash_attention``) on everything else. Before them
@@ -316,6 +333,12 @@ FLASH_CASES += [(1, 2, 1, 256, 200, False), (1, 2, 2, 33, 65, True)]
 # prefill, card vs CPU (DENSE_CPU_TOKENS), timed for the kernels line
 FLASH_SIMT_PATH = (2, 32, 8, 128, 256, True)
 FLASH_CASES += [FLASH_SIMT_PATH]
+# the shape K7 simt runs in every layer of deepseek-v2-lite-16b's prefill at
+# S = 4096 (MLA: 16 query heads = 16 KV heads, hd = qk_nope + qk_rope =
+# 192 with v zero-padded to it), bf16 only, as the model serves it
+FLASH_MLA = (1, 16, 16, 192, FLASH_PATH_S, True)
+FLASH_CASES += [FLASH_MLA]
+FLASH_DTYPES = {FLASH_MLA: (torch.bfloat16,)}
 # the reference's prefill_32k length, one sequence: K7 tc vs SDPA
 FLASH_LONG = (1, 32, 8, 128, 32768, True)
 FLASH_NAMES = {"tc": "flash_attention_tc", "simt": "flash_attention"}
@@ -338,6 +361,24 @@ DENSE_DECODE_PROMPT = 64         # prefill vs token-by-token decode
 DENSE_TOL = dict(rtol=1e-4, atol=1e-4)
 DENSE_PREFILL = (1, FLASH_PATH_S)
 DENSE_MAX_LEN = 32               # prompt 8 + 16 new tokens fit
+# the moe family (phase 7b): DeepSeek-V2-Lite at full width (a 2-layer cut
+# card vs CPU, then all 27 layers in bf16, prefilled and served) and
+# DeepSeek-V2's 236B config cut to 2 layers at full width. A token whose
+# k-th and (k+1)-th router probabilities lie closer than the devices'
+# float32 roundings may take another expert set on each device; such a
+# position (relative gap (p_k - p_k+1) / p_k below MOE_ROUTE_MARGIN) is
+# counted, printed and left out of the logit comparison with the later
+# positions of its sequence; a routing difference above the margin fails.
+# The 236B cut holds K7 against plain attention on the card in bf16, whose
+# roundings move router logits more (tests/test_torch_deepseek.py measured
+# swaps at relative gaps 0.014 and 0.021): MOE_BF16_ROUTE_MARGIN there.
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_BIG_ARCH = "deepseek-v2-236b"
+MOE_ROUTE_MARGIN = 1e-5
+MOE_BF16_ROUTE_MARGIN = 0.05
+MOE_DECODE_PROMPT = 8            # <= 8 tokens: no MoE row can drop one
+MOE_BIG_PREFILL = (1, 1024)
+MOE_BF16_TOL = dict(rtol=2e-2, atol=6.25e-2)
 # training (phase 8): the default recipe, the crash step, the card-vs-CPU
 # step's tolerances, and where checkpoints and the artifact go (inside
 # the checkout, gitignored, removed at the end)
@@ -998,7 +1039,8 @@ def flash_phase(g, dev, stats: dict) -> None:
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     for b, hq, hkv, hd, s, causal in FLASH_CASES:
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in FLASH_DTYPES.get((b, hq, hkv, hd, s, causal),
+                                   (torch.float32, torch.bfloat16)):
             picked = kfa.pick_variant(dt, hd)
             name = FLASH_NAMES[picked]
             case = (f"(B, Hq, Hkv, hd) = {(b, hq, hkv, hd)}, S = {s}, "
@@ -2086,11 +2128,11 @@ def dense_tree_bytes(params) -> int:
                for x in transformer.tree_leaves(params))
 
 
-def profile_call(fn, n: int, what: str) -> tuple[float, float, int]:
+def profile_call(fn, n: int, what: str):
     """Host wall ms per call of ``fn`` (``n`` calls ending in a sync), the
-    profiler's device kernel ms per call, and launches per call; prints
-    them with the device's idle share (1 - kernel time / wall) and the top
-    kernels. A call of the dense LM launches over a thousand kernels, more
+    profiler's device kernel ms per call, launches per call, and the
+    profiler's rows (``kernel_rows``); prints them with the device's idle
+    share (1 - kernel time / wall) and the top kernels. A call of the dense LM launches over a thousand kernels, more
     than ``device_ms``'s sleep gate can queue, so its device time is the
     profiler's sum of kernel times."""
     fn()
@@ -2104,7 +2146,7 @@ def profile_call(fn, n: int, what: str) -> tuple[float, float, int]:
     if not rows:
         print(f"  {what}: wall {wall_ms:.4f} ms; device time not measured "
               f"(the profiler recorded no device kernels)")
-        return wall_ms, float("nan"), 0
+        return wall_ms, float("nan"), 0, rows
     busy = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
     print(f"  {what}: {launches} launches, wall {wall_ms:.4f} ms, device "
@@ -2112,7 +2154,7 @@ def profile_call(fn, n: int, what: str) -> tuple[float, float, int]:
           f"{1 - busy / wall_ms:.3f}; top kernels (torch.profiler):")
     for ms, count, key in rows[:10]:
         print(f"    {ms:.4f} ms  x{count}  {key[:90]}")
-    return wall_ms, busy, launches
+    return wall_ms, busy, launches, rows
 
 
 def argmax_agrees(got: torch.Tensor, want: torch.Tensor, tol: float):
@@ -2408,6 +2450,368 @@ def dense_phase() -> tuple[int, int]:
           f"{LM_REQUESTS} requests' tokens changed")
     print(f"card: {smi('name,power.limit')}")
     return simt_launches, k7_launches
+
+
+class RouteLog:
+    """Records, on the host, (expert_idx, probs) of every
+    ``models/moe.py::route`` call made inside the ``with`` block."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.calls, self._route = [], moe.route
+
+        def recorded(p, cfg, x):
+            out = self._route(p, cfg, x)
+            self.calls.append((out[2].cpu(), out[0].cpu()))
+            return out
+        moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._route
+
+
+def route_keep(got: RouteLog, want: RouteLog, k: int, margin: float,
+               what: str):
+    """(B, S) mask of the positions before the first routing difference of
+    their sequence in any MoE layer, and the relative gaps (p_k - p_k+1) /
+    p_k, of ``want``'s router, at the positions whose top-k expert sets
+    differ; each must lie below ``margin``."""
+    check(len(got.calls) == len(want.calls) > 0,
+          f"{what}: {len(got.calls)} vs {len(want.calls)} router calls")
+    keep, gaps = None, []
+    for (gi, _), (wi, wp) in zip(got.calls, want.calls):
+        differ = (gi.sort(-1).values != wi.sort(-1).values).any(-1)
+        top = wp.topk(k + 1, dim=-1).values
+        gap = (top[..., k - 1] - top[..., k]) / top[..., k - 1]
+        here_gaps = gap[differ].tolist()
+        gaps += here_gaps
+        check(all(g < margin for g in here_gaps),
+              f"{what}: a token's experts differ at a relative router gap "
+              f"{max(here_gaps, default=0):.3g} >= {margin}")
+        s = differ.shape[-1]
+        first = torch.where(differ.any(-1), differ.int().argmax(-1),
+                            torch.full_like(differ[:, 0], s, dtype=torch.int64))
+        here = torch.arange(s)[None, :] < first[:, None]
+        keep = here if keep is None else keep & here
+    return keep, gaps
+
+
+def logits_agree(got: torch.Tensor, want: torch.Tensor, keep: torch.Tensor,
+                 tol: dict, what: str) -> str:
+    """Hold ``got`` against ``want`` (both (B, S, V) on the host) at the
+    ``keep`` positions: allclose at ``tol``, argmax equal where the top-1
+    is clear (``argmax_agrees``). Returns a summary."""
+    check(got.shape == want.shape and bool(got.isfinite().all()),
+          f"{what}: logits {tuple(got.shape)} malformed or not finite")
+    g, w = got.float()[keep], want.float()[keep]
+    check(g.shape[0] > 0, f"{what}: no position left to compare")
+    err = float((g - w).abs().max())
+    check(torch.allclose(g, w, **tol), f"{what}: max |diff| {err:.3g}")
+    bad, near = argmax_agrees(g, w, tol["atol"])
+    check(bad == 0, f"{what}: argmax differs at {bad} positions with a "
+          f"clear top-1")
+    return (f"max |diff| {err:.3g} over {g.shape[0]} of {keep.numel()} "
+            f"positions (rtol {tol['rtol']}, atol {tol['atol']}), argmax "
+            f"equal ({near} within the tie margin)")
+
+
+def moe_norm_scales(cfg) -> int:
+    """Norm scales of a moe tree, which ModelConfig.param_count leaves
+    out: ln1, ln2, the kv-norm and (with q-LoRA) the q-norm a layer, and
+    the final norm."""
+    return cfg.n_layers * (2 * cfg.d_model + cfg.kv_lora_rank
+                           + cfg.q_lora_rank) + cfg.d_model
+
+
+def moe_cut_checks(full, rng, dev) -> None:
+    """(a)-(c): the 2-layer float32 cut of ``full`` (layer 0 MLA with the
+    dense FFN, layer 1 MLA with the MoE), card vs the CPU port at
+    ``DENSE_TOL`` under the routing rule, at quant "none" and
+    "binary_weights"; then prefill vs an 8-token prompt fed through
+    ``decode_step`` on the card."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import transformer as tf
+
+    cut = full.with_(n_layers=2, dtype="float32")
+    params = tf.init_params(
+        cut, torch.Generator(device=dev).manual_seed(SEED), dev)
+    params_cpu = tf.tree_map(lambda x: x.cpu(), params)
+    toks = torch.from_numpy(rng.integers(0, cut.vocab_size, DENSE_CPU_TOKENS))
+    print(f"[moe] {MOE_ARCH} cut to 2 layers, float32, "
+          f"{dense_tree_bytes(params) / 1e9:.3f} GB of weights; tokens "
+          f"{DENSE_CPU_TOKENS}")
+    for quant in ("none", "binary_weights"):
+        cfg = cut.with_(quant=quant)
+        for what in ("prefill", "forward_train"):
+            tag = f"[moe {quant} {what}]"
+
+            def on(p, x, what=what):
+                if what == "prefill":
+                    return tf.prefill(cfg, p, x), None
+                return tf.forward_train(cfg, p, tf.Batch(x, x))
+
+            zero_k7()
+            with RouteLog() as card_routes:
+                got, aux = on(params, toks.to(dev))
+                torch.cuda.synchronize()
+            n_k7 = kfa.flash_attention.launches
+            check(n_k7 == cfg.n_layers == kfa.flash_attention.launches_simt,
+                  f"{tag} {n_k7} K7 launches "
+                  f"({kfa.flash_attention.launches_simt} simt), expected "
+                  f"{cfg.n_layers} simt")
+            with RouteLog() as cpu_routes:
+                want, want_aux = on(params_cpu, toks)
+            keep, gaps = route_keep(card_routes, cpu_routes, cfg.top_k,
+                                    MOE_ROUTE_MARGIN, tag)
+            if what == "prefill":
+                keep = keep[:, -1:]
+            msg = logits_agree(got.cpu(), want, keep, DENSE_TOL, tag)
+            if aux is not None:
+                aux, want_aux = float(aux), float(want_aux)
+                check(abs(aux - want_aux) <= DENSE_TOL["atol"]
+                      + DENSE_TOL["rtol"] * abs(want_aux),
+                      f"{tag} aux {aux} vs CPU {want_aux}")
+                msg += f"; aux {aux:.6g} vs CPU {want_aux:.6g}"
+            print(f"{tag} card == CPU port: {msg}; {len(gaps)} routing "
+                  f"near-ties left out (relative gaps "
+                  f"{[f'{g:.3g}' for g in gaps]}, margin {MOE_ROUTE_MARGIN})"
+                  f"; {n_k7} K7 launches, all simt")
+    del params_cpu
+
+    # (c) prefill (K7) vs the absorbed decode, an 8-token prompt
+    prompt = toks[:1, :MOE_DECODE_PROMPT].to(dev)
+    want = tf.prefill(cut, params, prompt)[0, -1]
+    state = tf.init_serve_state(cut, 1, MOE_DECODE_PROMPT, dev)
+    for i in range(MOE_DECODE_PROMPT):
+        logits, state = tf.decode_step(cut, params, state, prompt[:, i:i + 1])
+    got = logits[0, -1]
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, **DENSE_TOL)
+          and int(got.argmax()) == int(want.argmax()),
+          f"[moe] prefill vs decode_step on the card: max |diff| {err:.3g}")
+    print(f"[moe] prefill == {MOE_DECODE_PROMPT} absorbed decode steps on "
+          f"the card (quant none): last logits max |diff| {err:.3g}, argmax "
+          f"equal")
+
+
+def moe_big_cut(rng, dev) -> int:
+    """(f): deepseek-v2-236b cut to 2 layers at full width (128 heads,
+    q-LoRA 1536, 160 experts), bf16, ``prefill`` at ``MOE_BIG_PREFILL``
+    through K7 simt against the same cut with plain attention on the card.
+    The last position is compared where its experts, and whether each
+    took it within capacity, are the same in both runs. Returns the K7
+    launches."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+
+    cut = configs.get_config(MOE_BIG_ARCH).with_(n_layers=2)
+    params = tf.init_params(
+        cut, torch.Generator(device=dev).manual_seed(SEED), dev)
+    n_par = sum(x.numel() for x in tf.tree_leaves(params))
+    toks = torch.from_numpy(rng.integers(0, cut.vocab_size,
+                                         MOE_BIG_PREFILL)).to(dev)
+    zero_k7()
+    with RouteLog() as k7_routes:
+        got = tf.prefill(cut, params, toks)
+        torch.cuda.synchronize()
+    n_k7 = kfa.flash_attention.launches
+    check(n_k7 == cut.n_layers == kfa.flash_attention.launches_simt,
+          f"[moe 236b cut] {n_k7} K7 launches, expected {cut.n_layers} simt")
+    k7 = ops.flash_attention
+    ops.flash_attention = ref.flash_attention_ref
+    try:
+        with RouteLog() as plain_routes:
+            want = tf.prefill(cut, params, toks)
+    finally:
+        ops.flash_attention = k7
+    _, gaps = route_keep(k7_routes, plain_routes, cut.top_k,
+                         MOE_BF16_ROUTE_MARGIN, "[moe 236b cut]")
+    (gi, _), = k7_routes.calls
+    (wi, _), = plain_routes.calls
+    cap = moe.capacity(MOE_BIG_PREFILL[1], cut.n_experts, cut.top_k)
+
+    def last_token(idx):
+        """The last token's experts, and those that took it in capacity."""
+        _, se, st, ok, _ = moe.dispatch(idx, cap)
+        mine = st[0] == idx.shape[1] - 1
+        return sorted(se[0][mine].tolist()), sorted(se[0][mine & ok[0]].tolist())
+    same = last_token(gi) == last_token(wi)
+    keep = torch.tensor([[same]])
+    check(bool(got.isfinite().all()), "[moe 236b cut] logits not finite")
+    msg = (logits_agree(got.cpu(), want.cpu(), keep, MOE_BF16_TOL,
+                        "[moe 236b cut] K7 vs plain attention")
+           if same else "last position left out (its experts or drops "
+           "differ between the runs)")
+    print(f"[moe 236b cut] {MOE_BIG_ARCH} cut to 2 layers at full width "
+          f"({cut.n_heads} heads, q-LoRA {cut.q_lora_rank}, "
+          f"{cut.n_experts} experts), "
+          f"bf16, {n_par:,} parameters, {dense_tree_bytes(params) / 1e9:.3f} "
+          f"GB; prefill {MOE_BIG_PREFILL} through K7 simt ({n_k7} launches) "
+          f"vs plain attention on the card: {msg}; {len(gaps)} of "
+          f"{gi.shape[1]} tokens routed differently, all near-ties "
+          f"(relative gaps below {MOE_BF16_ROUTE_MARGIN}, largest "
+          f"{max(gaps, default=0):.3g})")
+    t_ms = time_ms(lambda: tf.prefill(cut, params, toks), reps=3)
+    profile_call(lambda: tf.prefill(cut, params, toks), 2,
+                 f"236b 2-layer prefill {MOE_BIG_PREFILL} (CUDA events "
+                 f"{t_ms:.2f} ms)")
+    return n_k7
+
+
+def moe_phase(dev: torch.device) -> int:
+    """Phase 7b: the moe family at full width on ``dev``. Returns the K7
+    launches of the full-depth Lite prefill (the main path's run) and the
+    236b cut."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.slots import latency_stats
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[moe] device memory held on entry: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    full = configs.get_config(MOE_ARCH)
+    rng = np.random.default_rng(SEED)
+
+    moe_cut_checks(full, rng, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- (d) all 27 layers at full width, bf16: prefill at (1, 4096)
+    t0 = time.perf_counter()
+    params = tf.init_params(
+        full, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_par = sum(x.numel() for x in tf.tree_leaves(params))
+    n_norm = moe_norm_scales(full)
+    print(f"[moe] full {MOE_ARCH}: {full.n_layers} layers ({full.n_experts} "
+          f"routed + {full.n_shared_experts} shared experts, top-"
+          f"{full.top_k}), {n_par:,} parameters ({full.param_count():,} "
+          f"counted by the config + {n_norm:,} norm scales), "
+          f"{dense_tree_bytes(params) / 1e9:.3f} GB, made on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(n_par == full.param_count() + n_norm,
+          "[moe] parameter count differs from the config's")
+    toks = torch.from_numpy(rng.integers(0, full.vocab_size,
+                                         DENSE_PREFILL)).to(dev)
+
+    def prefill():
+        return tf.prefill(full, params, toks)
+
+    prefill()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_k7()
+    logits = prefill()
+    torch.cuda.synchronize()
+    k7_launches = kfa.flash_attention.launches
+    check(k7_launches == full.n_layers == kfa.flash_attention.launches_simt,
+          f"[moe prefill] {k7_launches} K7 launches "
+          f"({kfa.flash_attention.launches_simt} simt), expected "
+          f"{full.n_layers} simt")
+    check(logits.shape == (1, 1, full.vocab_size)
+          and bool(logits.isfinite().all()), "[moe prefill] logits "
+          "malformed or not finite")
+    print(f"[moe prefill] {DENSE_PREFILL}: logits finite, {k7_launches} K7 "
+          f"launches, all simt (hd {full.qk_nope_head_dim + full.qk_rope_head_dim}"
+          f"), peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"CUDA events {time_ms(prefill, reps=3, warmup=0):.2f} ms per "
+          f"prefill")
+    _, busy, _, rows = profile_call(prefill, 2, f"prefill {DENSE_PREFILL}")
+    k7_ms = sum(r[0] for r in rows if "flash_simt" in r[2])
+    print(f"  K7 simt: {k7_ms:.4f} ms of {busy:.4f} ms of kernels per "
+          f"prefill ({k7_ms / busy:.3f} of the kernel time)")
+    del logits
+
+    # --- (e) served through the default TransformerServeModel
+    prompts = [rng.integers(0, full.vocab_size, (LM_PROMPT,)).tolist()
+               for _ in range(LM_REQUESTS)]
+    eng = ServingEngine(full, params, n_slots=N_SLOTS, max_len=DENSE_MAX_LEN,
+                        device=dev)
+    model = eng.model
+    del params                         # the engine holds its own copy
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_k7()
+    t0 = time.perf_counter()
+    rids = [eng.submit(pr, max_new_tokens=LM_MAX_NEW) for pr in prompts]
+    out = eng.run()
+    dt = time.perf_counter() - t0
+    check(sorted(out) == sorted(rids) and all(
+        len(out[r]) == LM_MAX_NEW for r in rids), "[moe serve] requests "
+        "lost or short")
+    check(kfa.flash_attention.launches == 0, "[moe serve] the decode path "
+          "launched K7")
+    toks0 = out[rids[0]]
+    state = model.init_state(N_SLOTS, DENSE_MAX_LEN)
+    feed = torch.zeros((N_SLOTS, 1), dtype=torch.int64, device=dev)
+    alone: list[int] = []
+    for i in range(LM_PROMPT + LM_MAX_NEW - 1):
+        feed[0, 0] = prompts[0][i] if i < LM_PROMPT else alone[-1]
+        logits, state = model.decode_step(eng.params, state, feed)
+        if i >= LM_PROMPT - 1:
+            alone.append(int(torch.argmax(logits[0, -1])))
+    check(alone == toks0, f"[moe serve] request 0's tokens {toks0} differ "
+          f"from a hand-rolled decode loop {alone}")
+    st = latency_stats(eng.sched.finished)
+    n_tok = sum(len(v) for v in out.values())
+    steps = eng.steps_executed
+    print(f"[moe serve] {LM_REQUESTS} requests (prompt {LM_PROMPT}, "
+          f"{LM_MAX_NEW} new) through {N_SLOTS} slots in {steps} steps, 0 K7 "
+          f"launches; request 0 equals a hand-rolled decode loop; "
+          f"{n_tok / dt:.1f} tok/s, p50 {st['p50'] * 1e3:.1f} ms, p99 "
+          f"{st['p99'] * 1e3:.1f} ms, {dt * 1e3 / steps:.2f} ms per step")
+    state = model.init_state(N_SLOTS, DENSE_MAX_LEN)
+    feed.zero_()
+    zero_k7()
+    profile_call(lambda: model.decode_step(eng.params, state, feed), 3,
+                 f"decode step at {N_SLOTS} slots")
+    check(kfa.flash_attention.launches == 0, "[moe serve] the profiled "
+          "decode step launched K7")
+    del state, logits
+
+    # hot-swap a second seed's weights mid-run, in place
+    rids = [eng.submit(pr, max_new_tokens=LM_MAX_NEW) for pr in prompts]
+    out2 = eng.run(max_steps=LM_SWAP_AT)
+    ptrs = [x.data_ptr() for x in eng.params]
+    new = model.swap_arrays(tf.init_params(
+        full, torch.Generator(device=dev).manual_seed(SEED + 1), dev))
+    print(f"[moe swap] peak device memory with the second tree: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    eng.swap_params(new)
+    del new
+    gc.collect()
+    torch.cuda.empty_cache()
+    check([x.data_ptr() for x in eng.params] == ptrs,
+          "[moe swap] a weight tensor changed storage")
+    out2.update(eng.run())
+    check(sorted(out2) == sorted(rids) and all(
+        len(out2[r]) == LM_MAX_NEW for r in rids), "[moe swap] requests "
+        "lost or short")
+    changed = sum(out2[r] != out[r0] for r, r0 in zip(rids, sorted(out)))
+    check(changed > 0, "[moe swap] the swap changed no token")
+    print(f"[moe swap] hot-swap after {LM_SWAP_AT} steps: all {len(ptrs)} "
+          f"weight tensors kept their storage (data_ptr); {changed} of "
+          f"{LM_REQUESTS} requests' tokens changed")
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- (f) deepseek-v2-236b, 2 layers at full width
+    big_launches = moe_big_cut(rng, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"card: {smi('name,power.limit')}")
+    return k7_launches + big_launches
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2746,6 +3150,7 @@ def main() -> int:
     launches["binary_weight_matmul"] = lm_phase()
     launches["flash_attention"], launches["flash_attention_tc"] = (
         dense_phase())
+    launches["flash_attention"] += moe_phase(torch.device("cuda"))
     train_phase(torch.device("cuda"))
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -2,7 +2,7 @@
 ``launch/serve.py --arch <id>`` (counterpart of ``repro/configs``).
 
 ``ARCH_MODULES`` holds the published architectures the port runs (the
-dense family of ``models/transformer.py``); ``BINARY_LM_MODULES`` the XNOR
+dense and moe families of ``models/transformer.py``); ``BINARY_LM_MODULES`` the XNOR
 LM (``models/xnor_lm.py``). The reference's other architectures raise
 ``KeyError`` until their family is ported.
 """
@@ -11,6 +11,8 @@ from __future__ import annotations
 import importlib
 
 ARCH_MODULES = {
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "glm4-9b": "repro_torch.configs.glm4_9b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
@@ -23,10 +25,9 @@ BINARY_LM_MODULES = {
     "xnor-lm-tiny": "repro_torch.configs.xnor_lm_tiny",
 }
 
-# the reference's architectures whose family (MLA/MoE, SSM, hybrid, vision
-# and audio stubs) the port does not have yet
-NOT_PORTED = ("deepseek-v2-lite-16b", "deepseek-v2-236b", "rwkv6-3b",
-              "zamba2-7b", "phi-3-vision-4.2b", "whisper-medium")
+# the reference's architectures whose family (SSM, hybrid, vision and
+# audio stubs) the port does not have yet
+NOT_PORTED = ("rwkv6-3b", "zamba2-7b", "phi-3-vision-4.2b", "whisper-medium")
 
 
 def _mod(name: str):

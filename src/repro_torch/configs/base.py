@@ -2,8 +2,8 @@
 ``repro/configs/base.py``; importing the reference's would pull in JAX).
 
 One dataclass covers dense/GQA, MLA+MoE (DeepSeek-V2), RWKV-6, Mamba-2 hybrids,
-enc-dec (Whisper) and VLM backbones; the port runs the dense family so far
-(``models/transformer.py``). Each ``configs/<arch>.py`` exports:
+enc-dec (Whisper) and VLM backbones; the port runs the dense and moe
+families so far (``models/transformer.py``). Each ``configs/<arch>.py`` exports:
 
     CONFIG        — the exact published configuration
     SMOKE_CONFIG  — a reduced same-family config for CPU tests

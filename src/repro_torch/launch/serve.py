@@ -3,10 +3,12 @@ of ``repro/launch/serve.py``, for the architectures the port has).
 
 Two model families share the one slot engine (``serve/engine.py``):
 
-* the dense LM zoo (``--arch`` from ``configs.ARCH_MODULES``, e.g.
-  ``qwen3-8b``): ``models/transformer.py`` with random weights from
-  ``--seed`` (``init_params``), in the linear-layer mode ``--quant``,
-  served by the engine's default ``TransformerServeModel``;
+* the LM zoo (``--arch`` from ``configs.ARCH_MODULES``: the dense
+  ``qwen3-8b``, ``yi-6b``, ``glm4-9b``, ``phi4-mini-3.8b`` and the moe
+  ``deepseek-v2-lite-16b``, ``deepseek-v2-236b``):
+  ``models/transformer.py`` with random weights from ``--seed``
+  (``init_params``), in the linear-layer mode ``--quant``, served by the
+  engine's default ``TransformerServeModel``;
 * the XNOR LM (``--arch xnor-lm-tiny``, the default here; the
   reference defaults to ``qwen3-8b``): ``models/xnor_lm.py``'s binarized
   transformer folded to its packed form. On the card its decode GEMM is
@@ -21,6 +23,8 @@ Usage:
         --requests 16 --slots 4 --max-new 16 --swap    # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch qwen3-8b --smoke --swap                 # plain path, CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch deepseek-v2-lite-16b --smoke --swap
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch xnor-lm-tiny --smoke --swap
 """
@@ -88,7 +92,7 @@ def main(argv=None):
                     help="serve the arch's SMOKE_CONFIG")
     ap.add_argument("--quant", default="none",
                     choices=["none", "binary", "binary_weights"],
-                    help="linear-layer mode of a dense arch "
+                    help="linear-layer mode of an LM zoo arch "
                          "(models/layers.py::dense)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)

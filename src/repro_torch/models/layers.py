@@ -57,7 +57,12 @@ def dense_packed_from(w: torch.Tensor) -> dict:
 # ---------------------------------------------------------------------------
 
 def dense(p: dict, x: torch.Tensor, quant: str = "none") -> torch.Tensor:
-    """x: (..., in) → (..., out), honoring the quant mode / param layout."""
+    """x: (..., in) → (..., out), honoring the quant mode / param layout.
+
+    A stacked weight (E, in, out) (``models/moe.py``'s experts) takes x of
+    shape (E, M, in) and gives (E, M, out); each expert's α is the mean
+    |w| over its own d_in, as the reference's ``vmap`` over E computes it.
+    """
     if "w_packed" in p:
         k = x.shape[-1]
         w_pm1 = bitpack.decode_pm1(bitpack.unpack_bits(p["w_packed"], k),
@@ -73,7 +78,7 @@ def dense(p: dict, x: torch.Tensor, quant: str = "none") -> torch.Tensor:
     if quant not in ("binary_weights", "binary"):
         raise ValueError(f"unknown quant mode {quant!r}")
     w32 = w.to(torch.float32)
-    alpha = w32.abs().mean(dim=0)
+    alpha = w32.abs().mean(dim=-2, keepdim=w.dim() == 3)
     x32 = x.to(torch.float32)
     if quant == "binary":
         x32 = binarize_ste(x32)

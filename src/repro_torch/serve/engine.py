@@ -15,7 +15,7 @@ joins a slot the moment one frees up instead of waiting for a batch:
 
 The model behind the step is an adapter with ``init_state`` /
 ``decode_step`` / ``reset_slot`` and a ``device``. The default,
-``TransformerServeModel``, serves the dense LM zoo of
+``TransformerServeModel``, serves the dense and moe LM zoo of
 ``models/transformer.py``; ``models/xnor_lm.py::XnorLMServeModel`` plugs
 in the packed XNOR LM (the reference's audio path comes with that
 family). The reference jit-compiles the step once and donates the state;
@@ -37,7 +37,8 @@ from repro_torch.serve.slots import SlotScheduler
 
 
 class TransformerServeModel:
-    """Default model adapter: the dense family of ``models/transformer.py``.
+    """Default model adapter: the dense and moe families of
+    ``models/transformer.py``.
 
     Holds copies of ``params`` on its device (a hot-swap overwrites those,
     never the caller's tree); ``arrays`` is their flat tuple, the engine's
@@ -64,10 +65,10 @@ class TransformerServeModel:
             tokens)
 
     def reset_slot(self, state, i: int, n_slots: int):
-        """Zero slot ``i`` of every layer's cache and length, in place."""
-        state.caches.k[:, i].zero_()
-        state.caches.v[:, i].zero_()
-        state.caches.length[:, i] = 0
+        """Zero slot ``i`` of every tensor of every layer's cache (K/V or
+        MLA's latents, and the length), in place."""
+        for t in state.caches:
+            t[:, i].zero_()
         return state
 
     def swap_arrays(self, new_params: dict) -> tuple:

@@ -47,6 +47,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.kernels.flash_attention",
             "repro_torch.models.layers", "repro_torch.models.attention",
             "repro_torch.models.transformer", "repro_torch.configs.base",
+            "repro_torch.models.mla", "repro_torch.models.moe",
+            "repro_torch.configs.deepseek_v2_lite_16b",
+            "repro_torch.configs.deepseek_v2_236b",
             "repro_torch.configs.qwen3_8b", "repro_torch.configs.yi_6b",
             "repro_torch.configs.glm4_9b",
             "repro_torch.configs.phi4_mini_3_8b",
