@@ -118,6 +118,25 @@ Phases, each fatal on failure (nothing is caught):
    config cut to 2 layers at full width, bf16, ``prefill`` at (1, 1024)
    through K7 simt against the same cut with plain attention on the
    card.
+7c. The vlm, ssm and hybrid families at full width
+   (``configs/phi3_vision_4_2b.py``, ``rwkv6_3b.py``, ``zamba2_7b.py``):
+   (a) each cut in depth (phi-3-vision and rwkv6 to 2 layers, zamba2 to 12
+   at ``attn_every`` 6: two shared-block applications) in float32 on the
+   card against the same port on the CPU at ``DENSE_TOL``:
+   phi-3-vision's ``prefill`` and ``forward_train`` with a (1, 576, 3072)
+   frontend and 64 text tokens, the recurrent ones' ``prefill`` at S = 128
+   (chunked forms) and 100 (token scans); 2, 2 and 0 K7 simt launches a
+   forward; (b) the rwkv6 and zamba2 cuts' ``prefill`` against a 64-token
+   prompt fed through ``decode_step``; (c) each whole model in bf16
+   prefilled at S = 4096 (phi-3-vision: 576 patches + 3520 tokens) with
+   32, 13 and 0 K7 simt launches, timed, its peak memory read and
+   profiled with K7's share of the kernel time; (d) each served through
+   ``ServingEngine`` at 4 slots (8 requests, prompt 16, 16 new tokens; no
+   K7 launch in decode; request 0 equal to a hand-rolled decode loop;
+   every reset slot read back zero in every state tensor at admission; a
+   decode step profiled; a mid-run hot-swap keeping every weight's
+   storage); then a table of the prefill and decode-step rows and the
+   phase's wall time.
 8. Training (``train/bcnn_train.py``) at full Table 2 width: one train
    step at batch 64 from ``numpy_params`` latents on the card and on the
    CPU (loss, every gradient, Adam moments, running statistics and the
@@ -146,7 +165,9 @@ and at the ragged extras (2, 4, 2, 64) at S = 256, (1, 2, 1, 64) at S =
 and 192, (1, 2, 1, 256) at S = 200 non-causal and (1, 2, 2, 33) at S = 65
 (rows the wrapper pads to 16 bytes), in float32 and bfloat16, and at
 DeepSeek-V2-Lite's MLA shape (1, 16, 16, 192) at S = 4096, causal
-(``FLASH_MLA``), in bfloat16 only (tolerances ``FLASH_TOL``), each in the variant ``pick_variant`` chooses (printed
+(``FLASH_MLA``), phi-3-vision's (1, 32, 32, 96) at S = 4096 and 4672
+(576 patches + 4096 tokens) and zamba2's (1, 32, 32, 112) at S = 4096
+(``FLASH_VLM``, ``FLASH_VLM_RAGGED``, ``FLASH_HYBRID``), in bfloat16 only (tolerances ``FLASH_TOL``), each in the variant ``pick_variant`` chooses (printed
 from the launch counters): "tc" (``flash_attention_tc``, bf16 at hd 64 /
 128) on contiguous tensors and on the strided head-major views the model
 hands over, "simt" (``flash_attention``) on everything else. Before them
@@ -338,7 +359,18 @@ FLASH_CASES += [FLASH_SIMT_PATH]
 # 192 with v zero-padded to it), bf16 only, as the model serves it
 FLASH_MLA = (1, 16, 16, 192, FLASH_PATH_S, True)
 FLASH_CASES += [FLASH_MLA]
-FLASH_DTYPES = {FLASH_MLA: (torch.bfloat16,)}
+# the shapes K7 simt runs on phase 7c's paths, bf16 only, as the models
+# serve them: every layer of phi-3-vision-4.2b's prefill (32 query heads =
+# 32 KV heads at hd 96) and every application of zamba2-7b's shared block
+# (32 = 32 at hd 112), at S = 4096; and phi-3-vision's ragged prefill of
+# 576 patches + 4096 text tokens
+FLASH_VLM = (1, 32, 32, 96, FLASH_PATH_S, True)
+FLASH_HYBRID = (1, 32, 32, 112, FLASH_PATH_S, True)
+FLASH_VLM_RAGGED = (1, 32, 32, 96, 576 + FLASH_PATH_S, True)
+FLASH_CASES += [FLASH_VLM, FLASH_HYBRID, FLASH_VLM_RAGGED]
+FLASH_DTYPES = {c: (torch.bfloat16,)
+                for c in (FLASH_MLA, FLASH_VLM, FLASH_HYBRID,
+                          FLASH_VLM_RAGGED)}
 # the reference's prefill_32k length, one sequence: K7 tc vs SDPA
 FLASH_LONG = (1, 32, 8, 128, 32768, True)
 FLASH_NAMES = {"tc": "flash_attention_tc", "simt": "flash_attention"}
@@ -379,6 +411,31 @@ MOE_BF16_ROUTE_MARGIN = 0.05
 MOE_DECODE_PROMPT = 8            # <= 8 tokens: no MoE row can drop one
 MOE_BIG_PREFILL = (1, 1024)
 MOE_BF16_TOL = dict(rtol=2e-2, atol=6.25e-2)
+# the vlm, ssm and hybrid families (phase 7c): each model cut in depth at
+# full width (card vs the CPU port in float32; prefill vs a decode loop on
+# the card), then whole in bf16: prefilled at S = 4096 and served at 4
+# slots. zamba2's cut keeps attn_every 6, so two shared-block
+# applications; S = 128 takes the recurrences' chunked forms, S = 100
+# their token scans. Card vs CPU is held at DENSE_TOL, as phases 7 and 7b
+# hold it: the cuts with K7 (float32 simt, whose sums run in another order
+# than the plain version's) measured up to 3.3e-05 (phi-3-vision) and
+# 1.66e-05 (zamba2) from the CPU port on an H100, rwkv6 (no K7,
+# full-width GEMMs alone) 9.3e-06, so the zoo's CPU F32 (1e-5) is below
+# what two devices' float32 sums give
+RECURRENT_ARCHS = ("phi-3-vision-4.2b", "rwkv6-3b", "zamba2-7b")
+RECURRENT_CUT_LAYERS = {"phi-3-vision-4.2b": 2, "rwkv6-3b": 2,
+                        "zamba2-7b": 12}
+RECURRENT_CUT_S = (128, 100)
+RECURRENT_VLM_TEXT = 64          # text tokens after the 576 patches
+RECURRENT_DECODE_PROMPT = 64
+# K7 launches (all simt) of one full bf16 prefill: one a layer, one a
+# shared-block application, none in the attention-free rwkv6
+RECURRENT_K7 = {"phi-3-vision-4.2b": 32, "rwkv6-3b": 0, "zamba2-7b": 13}
+RECURRENT_REQUESTS = 8
+RECURRENT_PROMPT = 16
+RECURRENT_NEW = 16
+RECURRENT_MAX_LEN = 40           # prompt 16 + 16 new tokens fit
+RECURRENT_SWAP_AT = 12           # engine steps before the mid-run swap
 # training (phase 8): the default recipe, the crash step, the card-vs-CPU
 # step's tolerances, and where checkpoints and the artifact go (inside
 # the checkout, gitignored, removed at the end)
@@ -2814,6 +2871,317 @@ def moe_phase(dev: torch.device) -> int:
     return k7_launches + big_launches
 
 
+def recurrent_extra_params(cfg) -> int:
+    """Parameters of a vlm, ssm or hybrid tree that
+    ``ModelConfig.param_count`` leaves out: the norms (and ``ln_x``'s
+    bias), the vision projection, rwkv6's shift mixes, decay bias, decay
+    LoRA and bonus, and Mamba-2's conv, its per-head vectors (A, D, Δ
+    bias) and inner norm."""
+    from repro_torch.models import mamba2, rwkv6
+    d, n_layers = cfg.d_model, cfg.n_layers
+    if cfg.family == "vlm":
+        return n_layers * 2 * d + d + d * d
+    if cfg.family == "ssm":
+        time_mix = 5 * d + d + 2 * rwkv6.DECAY_LORA * d + d + 2 * d
+        return n_layers * (time_mix + 2 * d + 2 * d) + d
+    d_inner, nh, n = mamba2._dims(cfg)
+    mamba = mamba2.CONV_K * (d_inner + 2 * n) + 3 * nh + d_inner + d
+    return n_layers * mamba + 2 * d + d
+
+
+def watch_resets(model) -> list:
+    """Wrap ``model.reset_slot`` so that every reset is followed by a
+    check that the slot reads zero in every tensor of the state
+    (``serve/engine.py::slot_part``). Returns the list of slots reset so
+    far."""
+    from repro_torch.serve.engine import slot_part, state_tensors
+    seen: list[int] = []
+    reset = model.reset_slot
+
+    def checked(state, i, n_slots):
+        state = reset(state, i, n_slots)
+        for t in state_tensors(state.caches):
+            part = slot_part(t, i, n_slots)
+            check(part is not None and not bool(part.any()),
+                  f"[serve] slot {i} of a {tuple(t.shape)} state tensor is "
+                  f"not zero after reset")
+        seen.append(i)
+        return state
+    model.reset_slot = checked
+    return seen
+
+
+def recurrent_cut(full, rng, dev) -> int:
+    """(a) ``full`` cut in depth (``RECURRENT_CUT_LAYERS``) at full width,
+    float32: the card against the CPU port at ``DENSE_TOL``. The vlm:
+    ``prefill`` and ``forward_train`` with a (1, 576, d) frontend and 64
+    text tokens; the recurrent families: ``prefill`` at each
+    ``RECURRENT_CUT_S``. K7's counters are zeroed just before each
+    forward on the card and read just after. (b) For the recurrent
+    families, ``prefill`` against a ``RECURRENT_DECODE_PROMPT``-token
+    prompt fed through ``decode_step`` on the card. Returns the K7
+    launches of (a)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import transformer as tf
+
+    cut = full.with_(n_layers=RECURRENT_CUT_LAYERS[full.name],
+                     dtype="float32")
+    every = {"vlm": 1, "hybrid": cut.attn_every}.get(cut.family)
+    n_attn = cut.n_layers // every if every else 0
+    params = tf.init_params(
+        cut, torch.Generator(device=dev).manual_seed(SEED), dev)
+    params_cpu = tf.tree_map(lambda x: x.cpu(), params)
+    tag = f"[{cut.name} cut]"
+    print(f"{tag} {cut.n_layers} layers at full width ({cut.family}), "
+          f"float32, {dense_tree_bytes(params) / 1e9:.3f} GB of weights; "
+          f"{n_attn} attention layers or shared-block applications")
+    v = cut.vocab_size
+    if cut.family == "vlm":
+        toks = torch.from_numpy(rng.integers(0, v, (1, RECURRENT_VLM_TEXT)))
+        fe = torch.from_numpy(rng.standard_normal(
+            (1, cut.frontend_seq, cut.d_model)).astype(np.float32))
+        cases = [("prefill", toks, fe), ("forward_train", toks, fe)]
+    else:
+        cases = [("prefill", torch.from_numpy(rng.integers(0, v, (1, s))),
+                  None) for s in RECURRENT_CUT_S]
+    launches = 0
+    for what, toks, fe in cases:
+        def on(p, x, f, what=what):
+            if what == "prefill":
+                return tf.prefill(cut, p, x, frontend=f)
+            return tf.forward_train(cut, p, tf.Batch(x, x, f))[0]
+        zero_k7()
+        got = on(params, toks.to(dev), None if fe is None else fe.to(dev))
+        torch.cuda.synchronize()
+        n_k7 = kfa.flash_attention.launches
+        check(n_k7 == n_attn == kfa.flash_attention.launches_simt,
+              f"{tag} {what}: {n_k7} K7 launches "
+              f"({kfa.flash_attention.launches_simt} simt), expected "
+              f"{n_attn} simt")
+        launches += n_k7
+        want = on(params_cpu, toks, fe)
+        got = got.cpu()
+        msg = logits_agree(got, want, torch.ones(got.shape[:2], dtype=bool),
+                           DENSE_TOL, f"{tag} {what}")
+        seq = toks.shape[1] + (0 if fe is None else fe.shape[1])
+        print(f"{tag} {what} at S = {seq}: card == CPU port: {msg}; "
+              f"{n_k7} K7 launches, all simt")
+    del params_cpu
+    if cut.family in ("ssm", "hybrid"):
+        prompt = torch.from_numpy(rng.integers(
+            0, v, (1, RECURRENT_DECODE_PROMPT))).to(dev)
+        want = tf.prefill(cut, params, prompt)[0, -1]
+        state = tf.init_serve_state(cut, 1, RECURRENT_DECODE_PROMPT, dev)
+        for i in range(RECURRENT_DECODE_PROMPT):
+            logits, state = tf.decode_step(cut, params, state,
+                                           prompt[:, i:i + 1])
+        got = logits[0, -1]
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, **DENSE_TOL)
+              and int(got.argmax()) == int(want.argmax()),
+              f"{tag} prefill vs decode_step on the card: max |diff| "
+              f"{err:.3g}")
+        print(f"{tag} prefill (chunked forms) == {RECURRENT_DECODE_PROMPT} "
+              f"decode steps (token scans) on the card: last logits max "
+              f"|diff| {err:.3g} (rtol = atol = {DENSE_TOL['atol']}), "
+              f"argmax equal")
+    return launches
+
+
+def recurrent_full(full, rng, dev) -> tuple[int, list]:
+    """(c) ``full`` whole in bf16: ``prefill`` at S = 4096 (the vlm: 576
+    patches + 3520 text tokens), ``RECURRENT_K7`` simt launches required,
+    timed (CUDA events), its peak memory read and profiled with K7's
+    share; (d) served through ``ServingEngine`` at 4 slots: every request
+    done, no K7 launch in decode, request 0 equal to a hand-rolled decode
+    loop, every reset slot zero in every state tensor at admission, a
+    decode step profiled, and a second seed's weights hot-swapped mid-run
+    with every weight keeping its storage. Returns (K7 launches of the
+    prefill, rows for the summary table)."""
+    import gc
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.slots import latency_stats
+
+    name = full.name
+    t0 = time.perf_counter()
+    params = tf.init_params(
+        full, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_par = sum(x.numel() for x in tf.tree_leaves(params))
+    extra = recurrent_extra_params(full)
+    print(f"[{name}] full: {full.n_layers} layers, d {full.d_model}, "
+          f"{n_par:,} parameters ({full.param_count():,} counted by the "
+          f"config + {extra:,} it leaves out), "
+          f"{dense_tree_bytes(params) / 1e9:.3f} GB, made on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(n_par == full.param_count() + extra,
+          f"[{name}] parameter count differs from the config's")
+    fe = None
+    text = FLASH_PATH_S
+    if full.family == "vlm":
+        fe = torch.randn((1, full.frontend_seq, full.d_model),
+                         generator=torch.Generator(device=dev).manual_seed(
+                             SEED), device=dev).to(torch.bfloat16)
+        text -= full.frontend_seq
+    toks = torch.from_numpy(rng.integers(0, full.vocab_size,
+                                         (1, text))).to(dev)
+
+    def prefill():
+        return tf.prefill(full, params, toks, frontend=fe)
+
+    prefill()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_k7()
+    logits = prefill()
+    torch.cuda.synchronize()
+    n_k7 = kfa.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(n_k7 == RECURRENT_K7[name] == kfa.flash_attention.launches_simt,
+          f"[{name} prefill] {n_k7} K7 launches "
+          f"({kfa.flash_attention.launches_simt} simt), expected "
+          f"{RECURRENT_K7[name]} simt")
+    check(logits.shape == (1, 1, full.vocab_size)
+          and bool(logits.isfinite().all()),
+          f"[{name} prefill] logits malformed or not finite")
+    shape = (f"{full.frontend_seq} patches + {text} tokens" if fe is not None
+             else f"(1, {text})")
+    ev_ms = time_ms(prefill, reps=3, warmup=0)
+    print(f"[{name} prefill] {shape}: logits finite, {n_k7} K7 launches, "
+          f"all simt (hd {full.head_dim if n_k7 else '-'}), peak memory "
+          f"{peak:.2f} GB; CUDA events {ev_ms:.2f} ms per prefill")
+    wall, busy, n_launch, rows = profile_call(prefill, 2,
+                                              f"prefill {shape}")
+    k7_ms = sum(r[0] for r in rows if "flash_simt" in r[2])
+    print(f"  K7 simt: {k7_ms:.4f} ms of {busy:.4f} ms of kernels per "
+          f"prefill ({k7_ms / busy:.3f} of the kernel time)")
+    table = [(f"{name} prefill {shape}", n_launch, wall, busy,
+              1 - busy / wall, k7_ms / busy, peak)]
+    del logits
+
+    # (d) served through the default TransformerServeModel
+    prompts = [rng.integers(0, full.vocab_size, (RECURRENT_PROMPT,)).tolist()
+               for _ in range(RECURRENT_REQUESTS)]
+    eng = ServingEngine(full, params, n_slots=N_SLOTS,
+                        max_len=RECURRENT_MAX_LEN, device=dev)
+    model = eng.model
+    del params                         # the engine holds its own copy
+    gc.collect()
+    torch.cuda.empty_cache()
+    resets = watch_resets(model)
+    zero_k7()
+    t0 = time.perf_counter()
+    rids = [eng.submit(pr, max_new_tokens=RECURRENT_NEW) for pr in prompts]
+    out = eng.run()
+    dt = time.perf_counter() - t0
+    check(sorted(out) == sorted(rids) and all(
+        len(out[r]) == RECURRENT_NEW for r in rids),
+        f"[{name} serve] requests lost or short")
+    check(kfa.flash_attention.launches == 0,
+          f"[{name} serve] the decode path launched K7")
+    check(len(resets) == RECURRENT_REQUESTS,
+          f"[{name} serve] {len(resets)} slot resets checked, expected "
+          f"{RECURRENT_REQUESTS}")
+    state = model.init_state(N_SLOTS, RECURRENT_MAX_LEN)
+    feed = torch.zeros((N_SLOTS, 1), dtype=torch.int64, device=dev)
+    alone: list[int] = []
+    for i in range(RECURRENT_PROMPT + RECURRENT_NEW - 1):
+        feed[0, 0] = prompts[0][i] if i < RECURRENT_PROMPT else alone[-1]
+        logits, state = model.decode_step(eng.params, state, feed)
+        if i >= RECURRENT_PROMPT - 1:
+            alone.append(int(torch.argmax(logits[0, -1])))
+    check(alone == out[rids[0]], f"[{name} serve] request 0's tokens "
+          f"{out[rids[0]]} differ from a hand-rolled decode loop {alone}")
+    st = latency_stats(eng.sched.finished)
+    n_tok = sum(len(x) for x in out.values())
+    steps = eng.steps_executed
+    print(f"[{name} serve] {RECURRENT_REQUESTS} requests (prompt "
+          f"{RECURRENT_PROMPT}, {RECURRENT_NEW} new) through {N_SLOTS} slots "
+          f"in {steps} steps, 0 K7 launches, {len(resets)} slot resets each "
+          f"read back zero in every state tensor; request 0 equals a "
+          f"hand-rolled decode loop; {n_tok / dt:.1f} tok/s, p50 "
+          f"{st['p50'] * 1e3:.1f} ms, p99 {st['p99'] * 1e3:.1f} ms, "
+          f"{dt * 1e3 / steps:.2f} ms per step")
+    state = model.init_state(N_SLOTS, RECURRENT_MAX_LEN)
+    feed.zero_()
+    zero_k7()
+    wall, busy, n_launch, _ = profile_call(
+        lambda: model.decode_step(eng.params, state, feed), 3,
+        f"decode step at {N_SLOTS} slots")
+    check(kfa.flash_attention.launches == 0,
+          f"[{name} serve] the profiled decode step launched K7")
+    table.append((f"{name} decode step, {N_SLOTS} slots", n_launch, wall,
+                  busy, 1 - busy / wall, 0.0, float("nan")))
+    del state, logits
+
+    # hot-swap a second seed's weights mid-run, in place
+    rids = [eng.submit(pr, max_new_tokens=RECURRENT_NEW) for pr in prompts]
+    out2 = eng.run(max_steps=RECURRENT_SWAP_AT)
+    ptrs = [x.data_ptr() for x in eng.params]
+    new = model.swap_arrays(tf.init_params(
+        full, torch.Generator(device=dev).manual_seed(SEED + 1), dev))
+    eng.swap_params(new)
+    del new
+    gc.collect()
+    torch.cuda.empty_cache()
+    check([x.data_ptr() for x in eng.params] == ptrs,
+          f"[{name} swap] a weight tensor changed storage")
+    out2.update(eng.run())
+    check(sorted(out2) == sorted(rids) and all(
+        len(out2[r]) == RECURRENT_NEW for r in rids),
+        f"[{name} swap] requests lost or short")
+    changed = sum(out2[r] != out[r0] for r, r0 in zip(rids, sorted(out)))
+    check(changed > 0, f"[{name} swap] the swap changed no token")
+    print(f"[{name} swap] hot-swap after {RECURRENT_SWAP_AT} steps: all "
+          f"{len(ptrs)} weight tensors kept their storage (data_ptr); "
+          f"{changed} of {RECURRENT_REQUESTS} requests' tokens changed; "
+          f"{len(resets)} slot resets read back zero")
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n_k7, table
+
+
+def recurrent_phase(dev: torch.device) -> int:
+    """Phase 7c: the vlm, ssm and hybrid families at full width on
+    ``dev`` (``recurrent_cut``, then ``recurrent_full``, for each of
+    ``RECURRENT_ARCHS``). Returns the K7 launches of its main-path runs:
+    the cuts' float32 forwards and the full bf16 prefills."""
+    import gc
+
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[recurrent] device memory held on entry: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    rng = np.random.default_rng(SEED)
+    launches = 0
+    for arch in RECURRENT_ARCHS:
+        launches += recurrent_cut(configs.get_config(arch), rng, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    table = []
+    for arch in RECURRENT_ARCHS:
+        n, rows = recurrent_full(configs.get_config(arch), rng, dev)
+        launches += n
+        table += rows
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("[recurrent] call | launches | wall ms | kernel ms | idle | K7 "
+          "share | peak GB")
+    for what, n, wall, busy, idle, k7, peak in table:
+        print(f"[recurrent] {what} | {n} | {wall:.4f} | {busy:.4f} | "
+              f"{idle:.3f} | {k7:.3f} | {peak:.2f}")
+    print(f"[recurrent] phase 7c wall {time.perf_counter() - t_phase:.1f} s;"
+          f" card: {smi('name,power.limit')}")
+    return launches
+
+
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     """‖got − want‖ / ‖want‖ in float64 (0 where both are 0)."""
     got, want = got.double().cpu(), want.double().cpu()
@@ -3151,6 +3519,7 @@ def main() -> int:
     launches["flash_attention"], launches["flash_attention_tc"] = (
         dense_phase())
     launches["flash_attention"] += moe_phase(torch.device("cuda"))
+    launches["flash_attention"] += recurrent_phase(torch.device("cuda"))
     train_phase(torch.device("cuda"))
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -2,9 +2,10 @@
 ``launch/serve.py --arch <id>`` (counterpart of ``repro/configs``).
 
 ``ARCH_MODULES`` holds the published architectures the port runs (the
-dense and moe families of ``models/transformer.py``); ``BINARY_LM_MODULES`` the XNOR
-LM (``models/xnor_lm.py``). The reference's other architectures raise
-``KeyError`` until their family is ported.
+dense, moe, vlm, ssm and hybrid families of ``models/transformer.py``);
+``BINARY_LM_MODULES`` the XNOR LM (``models/xnor_lm.py``). The reference's
+audio architecture (whisper-medium) raises ``KeyError`` until its family
+is ported.
 """
 from __future__ import annotations
 
@@ -14,9 +15,12 @@ ARCH_MODULES = {
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "glm4-9b": "repro_torch.configs.glm4_9b",
+    "phi-3-vision-4.2b": "repro_torch.configs.phi3_vision_4_2b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
     "yi-6b": "repro_torch.configs.yi_6b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 ARCH_NAMES = tuple(ARCH_MODULES)
@@ -25,9 +29,9 @@ BINARY_LM_MODULES = {
     "xnor-lm-tiny": "repro_torch.configs.xnor_lm_tiny",
 }
 
-# the reference's architectures whose family (SSM, hybrid, vision and
-# audio stubs) the port does not have yet
-NOT_PORTED = ("rwkv6-3b", "zamba2-7b", "phi-3-vision-4.2b", "whisper-medium")
+# the reference's architectures whose family (the audio stub) the port
+# does not have yet
+NOT_PORTED = ("whisper-medium",)
 
 
 def _mod(name: str):

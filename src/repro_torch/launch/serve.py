@@ -4,8 +4,10 @@ of ``repro/launch/serve.py``, for the architectures the port has).
 Two model families share the one slot engine (``serve/engine.py``):
 
 * the LM zoo (``--arch`` from ``configs.ARCH_MODULES``: the dense
-  ``qwen3-8b``, ``yi-6b``, ``glm4-9b``, ``phi4-mini-3.8b`` and the moe
-  ``deepseek-v2-lite-16b``, ``deepseek-v2-236b``):
+  ``qwen3-8b``, ``yi-6b``, ``glm4-9b``, ``phi4-mini-3.8b``, the moe
+  ``deepseek-v2-lite-16b``, ``deepseek-v2-236b``, the vlm
+  ``phi-3-vision-4.2b`` (served text only), the ssm ``rwkv6-3b`` and the
+  hybrid ``zamba2-7b``):
   ``models/transformer.py`` with random weights from ``--seed``
   (``init_params``), in the linear-layer mode ``--quant``, served by the
   engine's default ``TransformerServeModel``;
@@ -25,6 +27,8 @@ Usage:
         --arch qwen3-8b --smoke --swap                 # plain path, CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch deepseek-v2-lite-16b --smoke --swap
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch zamba2-7b --smoke --swap     # also rwkv6-3b, phi-3-vision-4.2b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch xnor-lm-tiny --smoke --swap
 """

@@ -1,6 +1,6 @@
-"""Attention of the dense LM zoo (counterpart of the GQA half of
-``repro/models/attention.py``): GQA/MHA with RoPE and qk-norm, a KV cache
-and the one-token decode step.
+"""Attention of the LM zoo (counterpart of the GQA half of
+``repro/models/attention.py``): GQA/MHA with RoPE and qk-norm, sliding
+windows, a KV cache and the one-token decode step.
 
 * ``gqa_forward`` (training / prefill, no cache) runs the whole sequence
   through ``kernels/ops.py::flash_attention``: K7 on a CUDA tensor, where
@@ -14,15 +14,19 @@ and the one-token decode step.
   einsum, as the reference does (no kernel there). It updates the cache in
   place at each slot's own length.
 
-``cfg.window`` (sliding-window attention, the reference's
-``blockwise_causal_attention`` path of the hybrid family) and
-``cross_attn_forward`` (the audio family) come with those families.
+* With ``cfg.window`` set (sliding-window attention), ``gqa_forward``
+  takes ``blockwise_causal_attention`` on every device, never K7, as the
+  reference does on every backend; ``gqa_decode_step`` masks the keys
+  that fell out of the window. No config of the zoo sets a window.
+
+``cross_attn_forward`` (the audio family) comes with that family.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers
@@ -47,11 +51,71 @@ def attn_init(generator: torch.Generator, cfg, dtype=torch.bfloat16,
     return p
 
 
-def _check_window(cfg) -> None:
-    if cfg.window is not None:
-        raise NotImplementedError(
-            "sliding-window attention (cfg.window) comes with the hybrid "
-            "family; see ROADMAP queue 1")
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, S, KV, hd) → (B, S, KV·groups, hd) for GQA head sharing."""
+    if groups == 1:
+        return k
+    b, s, kv, hd = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, groups, hd).reshape(
+        b, s, kv * groups, hd)
+
+
+def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, block: int = 1024,
+                               q_block: int | None = None,
+                               window: int | None = None,
+                               causal: bool = True) -> torch.Tensor:
+    """Flash-style attention in plain PyTorch, the reference's: a loop over
+    KV blocks (optionally inside one over Q blocks) with an online
+    softmax. q, k, v: (B, S, H, hd), K/V already repeated to H heads →
+    (B, S, H, hd).
+
+    Scores and the running max / sum / accumulator are float32; the
+    exponentials are rounded to v's dtype before their product with V and
+    their sum, as in the reference. Keys past S (padding to whole blocks),
+    in the future (``causal``) or ``window`` or more positions back are
+    masked.
+    """
+    b, s, h, hd = q.shape
+    q_block = s if q_block is None else q_block
+    scale = hd ** -0.5
+    nb = -(-s // block)
+    pad = nb * block - s
+    nqb = -(-s // q_block)
+    qpad = nqb * q_block - s
+    f32 = torch.float32
+    # head-major (B, H, S, hd), padded to whole blocks
+    kh = F.pad(k, (0, 0, 0, 0, 0, pad)).transpose(1, 2)
+    vh = F.pad(v, (0, 0, 0, 0, 0, pad)).transpose(1, 2)
+    qh = F.pad(q, (0, 0, 0, 0, 0, qpad)).transpose(1, 2)
+    outs = []
+    for qi in range(nqb):
+        qblk = qh[:, :, qi * q_block:(qi + 1) * q_block]
+        q_pos = qi * q_block + torch.arange(q_block, device=q.device)
+        m = torch.full((b, h, q_block), NEG_INF, dtype=f32, device=q.device)
+        l = torch.zeros((b, h, q_block), dtype=f32, device=q.device)
+        acc = torch.zeros((b, h, q_block, hd), dtype=f32, device=q.device)
+        for blk in range(nb):
+            kblk = kh[:, :, blk * block:(blk + 1) * block]
+            vblk = vh[:, :, blk * block:(blk + 1) * block]
+            kv_pos = blk * block + torch.arange(block, device=q.device)
+            sc = torch.einsum("bhqd,bhkd->bhqk", qblk.to(f32),
+                              kblk.to(f32)) * scale
+            mask = (kv_pos < s)[None, :]                 # drop pad keys
+            if causal:
+                mask = mask & (q_pos[:, None] >= kv_pos[None, :])
+            if window is not None:
+                mask = mask & (q_pos[:, None] - kv_pos[None, :] < window)
+            sc = torch.where(mask[None, None], sc, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None]).to(vblk.dtype)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.to(f32).sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(f32), vblk.to(f32))
+            m = m_new
+        outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=2).transpose(1, 2)[:, :s]
 
 
 def _quant(cfg) -> str:
@@ -78,12 +142,20 @@ def _qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
 
 def gqa_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                 *, causal: bool = True) -> torch.Tensor:
-    """Training / prefill attention (no cache). x: (B, S, D)."""
-    _check_window(cfg)
+    """Training / prefill attention (no cache). x: (B, S, D). K7 through
+    ``ops.flash_attention``, or with ``cfg.window`` the blockwise plain
+    attention."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
-    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal).transpose(1, 2)
+    if cfg.window is not None:
+        g = cfg.n_heads // cfg.n_kv_heads
+        out = blockwise_causal_attention(q, _repeat_kv(k, g),
+                                         _repeat_kv(v, g), window=cfg.window,
+                                         causal=causal)
+    else:
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2),
+                                  causal=causal).transpose(1, 2)
     return layers.dense(p["wo"], out.reshape(b, s, cfg.n_heads * cfg.head_dim),
                         _quant(cfg))
 
@@ -109,13 +181,13 @@ def gqa_decode_step(p: dict, cfg, x: torch.Tensor, cache: KVCache
     """One-token attention against the cache. x: (B, 1, D).
 
     Each slot writes its K/V at its own ``length`` and attends to the
-    positions ≤ ``length``, so slots at different depths share one step.
+    positions ≤ ``length`` (and, with ``cfg.window``, > ``length`` −
+    window), so slots at different depths share one step.
     A write at a length past the cache is dropped (the reference's
     ``mode="drop"`` scatter): the old row is written back at a clamped
     index, on the device and without a host sync. Updates ``cache`` (K, V
     and length) in place and returns it.
     """
-    _check_window(cfg)
     b = x.shape[0]
     hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     length = cache.length
@@ -134,8 +206,11 @@ def gqa_decode_step(p: dict, cfg, x: torch.Tensor, cache: KVCache
     qg = q.reshape(b, 1, kvh, g, hd)
     sc = torch.einsum("bqkgd,bskd->bqkgs", qg.to(torch.float32),
                       cache.k.to(torch.float32)) * hd ** -0.5
-    valid = (torch.arange(max_len, device=x.device)[None, None, None, None, :]
-             <= length[:, None, None, None, None])
+    kv_pos = torch.arange(max_len, device=x.device)[None, None, None, None, :]
+    idx = length[:, None, None, None, None]                   # per slot
+    valid = kv_pos <= idx
+    if cfg.window is not None:
+        valid = valid & (kv_pos > idx - cfg.window)
     w = torch.softmax(torch.where(valid, sc, NEG_INF), dim=-1)
     out = torch.einsum("bqkgs,bskd->bqkgd",
                        w.to(cache.v.dtype).to(torch.float32),

@@ -1,24 +1,30 @@
-"""Model assembly of the LM zoo, dense and moe families (counterpart of
+"""Model assembly of the LM zoo (counterpart of
 ``repro/models/transformer.py``).
 
-dense : [norm → GQA attention → norm → MLP] × L
-moe   : [norm → MLA attention → norm → (dense MLP | shared + routed MoE)]
-        × L, the first ``first_dense_layers`` with the dense MLP
+dense | vlm : [norm → GQA attention → norm → MLP] × L; vlm prepends the
+              projected patch embeddings of a stub vision frontend
+moe         : [norm → MLA attention → norm → (dense MLP | shared + routed
+              MoE)] × L, the first ``first_dense_layers`` with the dense MLP
+ssm (rwkv6) : [norm → time mix → norm → channel mix] × L
+hybrid      : chunks of ``attn_every`` Mamba-2 blocks, each chunk followed
+(zamba2)      by ONE weight-shared GQA + MLP block (Zamba2's shared block)
 
 Layers are weight-stacked along a leading layer axis, as in the reference
 (``"stack0_dense_attn"``; moe: ``"stack0_dense_attn_mla"`` and
-``"stack1_moe"``), and applied by a Python loop over that axis where the
-reference scans. Every layer's full-sequence attention goes through
-``kernels/ops.py::flash_attention`` (``attention.gqa_forward`` or
-``mla.mla_forward``), so on the card ``forward_train`` and ``prefill``
-launch K7 once per layer. Serving steps one token per slot through
-``decode_step``, which updates the per-layer caches (K/V, or MLA's
-latents) in place.
+``"stack1_moe"``; ``"stack0_rwkv"``, ``"stack0_mamba"``), and applied by a
+Python loop over that axis where the reference scans. Every
+full-sequence attention goes through ``kernels/ops.py::flash_attention``
+(``attention.gqa_forward`` or ``mla.mla_forward``), so on the card
+``forward_train`` and ``prefill`` launch K7 once per attention layer, once
+per application of the hybrid's shared block, and never in the ssm
+family. Serving steps one token per slot through ``decode_step``, which
+updates the per-layer caches (K/V, MLA's latents, the recurrent states
+and the shared block's per-application K/V) in place.
 
-The other families (ssm, hybrid, vlm, audio) raise ``NotImplementedError``
-until they are ported (ROADMAP queue 1). ``loss_fn`` is not ported: on
-the card ``forward_train`` reaches K7, which has no backward (ROADMAP
-queue 1). The BCNN and the XNOR LM train (``train/bcnn_train.py``,
+The audio family (whisper) raises ``NotImplementedError`` until it is
+ported (ROADMAP queue 1). ``loss_fn`` is not ported: on the card
+``forward_train`` reaches K7, which has no backward (ROADMAP queue 1).
+The BCNN and the XNOR LM train (``train/bcnn_train.py``,
 ``models/xnor_lm.py::loss_fn``).
 
 Entry points (functions of (cfg, params, …)):
@@ -32,9 +38,9 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.models import attention, layers, mla, moe
+from repro_torch.models import attention, layers, mamba2, mla, moe, rwkv6
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def _dtype(cfg):
@@ -45,7 +51,7 @@ def _check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
-            f"port runs the dense family, see ROADMAP queue 1")
+            f"port runs the families {FAMILIES}, see ROADMAP queue 1")
 
 
 # ---------------------------------------------------------------------------
@@ -65,15 +71,23 @@ def _attn_block_init(generator: torch.Generator, cfg, dt, device) -> dict:
 def _block_init(generator: torch.Generator, cfg, layer_kind: str,
                 device) -> dict:
     dt = _dtype(cfg)
+    if layer_kind == "rwkv":
+        p = rwkv6.rwkv_init(generator, cfg, dt, device)
+        p["ln1"] = layers.norm_init(cfg.d_model, cfg.norm_type, device)
+        p["ln2"] = layers.norm_init(cfg.d_model, cfg.norm_type, device)
+        return p
+    if layer_kind == "mamba":
+        return {"ln1": layers.norm_init(cfg.d_model, cfg.norm_type, device),
+                "mamba": mamba2.mamba_init(generator, cfg, dt, device)}
+    if layer_kind not in ("dense_attn", "moe"):
+        raise NotImplementedError(f"layer kind {layer_kind!r} is not ported "
+                                  f"yet, see ROADMAP queue 1")
     p = _attn_block_init(generator, cfg, dt, device)
     if layer_kind == "dense_attn":
         p["mlp"] = layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
                                    cfg.mlp_type, dt, device)
-    elif layer_kind == "moe":
-        p["moe"] = moe.moe_init(generator, cfg, dt, device)
     else:
-        raise NotImplementedError(f"layer kind {layer_kind!r} is not ported "
-                                  f"yet, see ROADMAP queue 1")
+        p["moe"] = moe.moe_init(generator, cfg, dt, device)
     return p
 
 
@@ -105,13 +119,29 @@ def _layer_plan(cfg) -> list[tuple[str, int]]:
     if cfg.family == "moe":
         nd = cfg.first_dense_layers
         return [("dense_attn_mla", nd), ("moe", cfg.n_layers - nd)]
+    if cfg.family == "ssm":
+        return [("rwkv", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        return [("mamba", cfg.n_layers)]
     return [("dense_attn", cfg.n_layers)]
+
+
+def _hybrid_chunks(cfg) -> tuple[int, int]:
+    """(applications of the shared block, Mamba-2 layers before each).
+    Raises where the layers do not split evenly, as the reference's
+    reshape of the stack does."""
+    every = cfg.attn_every or cfg.n_layers
+    if cfg.n_layers % every:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
+                         f"multiple of attn_every {every}")
+    return cfg.n_layers // every, every
 
 
 def init_params(cfg, generator: torch.Generator, device="cpu") -> dict:
     """The reference's ``init_params`` tree (same keys, shapes and dtypes;
-    weights in the config's dtype, norm scales and the MoE router in
-    float32) from ``generator``, on ``device``. Draws happen on the
+    weights in the config's dtype; norm scales, the MoE router and the
+    recurrent blocks' mixes, decays and biases in float32) from
+    ``generator``, on ``device``. Draws happen on the
     generator's device: pass a CUDA generator to build a full-size model
     on the card."""
     _check_family(cfg)
@@ -129,6 +159,15 @@ def init_params(cfg, generator: torch.Generator, device="cpu") -> dict:
             block = "dense_attn" if kind == "dense_attn_mla" else kind
             params[f"stack{i}_{kind}"] = _stack_init(generator, cfg, block,
                                                      count, device)
+    if cfg.family == "hybrid":
+        _hybrid_chunks(cfg)
+        params["shared_attn"] = _block_init(generator, cfg, "dense_attn",
+                                            device)
+    if cfg.family == "vlm":
+        # the stub vision frontend: one projection of precomputed patch
+        # embeddings
+        params["vision_proj"] = layers.dense_init(generator, cfg.d_model,
+                                                  cfg.d_model, dt, device)
     return params
 
 
@@ -199,28 +238,62 @@ def _apply_moe(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
     return x + y, aux
 
 
+def _apply_rwkv(p: dict, cfg, x: torch.Tensor, st: rwkv6.RWKVState):
+    h = layers.apply_norm(p["ln1"], x, cfg.norm_type)
+    y, st = rwkv6.time_mix_forward(p["time_mix"], cfg, h, st)
+    x = (x + y).to(x.dtype)
+    h = layers.apply_norm(p["ln2"], x, cfg.norm_type)
+    y, st = rwkv6.channel_mix_forward(p["channel_mix"], cfg, h, st)
+    return (x + y).to(x.dtype), st
+
+
+def _apply_mamba(p: dict, cfg, x: torch.Tensor, st: mamba2.MambaState):
+    h = layers.apply_norm(p["ln1"], x, cfg.norm_type)
+    y, st = mamba2.mamba_forward(p["mamba"], cfg, h, st)
+    return (x + y).to(x.dtype), st
+
+
 def _layer(stack: dict, i: int) -> dict:
     return tree_map(lambda a: a[i], stack)
 
 
 def _layers(cfg, params: dict):
-    """(layer kind "dense_attn" | "moe", that layer's parameters) of every
-    layer of the stack, in order."""
+    """(layer kind "dense_attn" | "moe" | "rwkv" | "mamba", that layer's
+    parameters) of every layer of the stack, in order."""
     for i, (kind, count) in enumerate(_layer_plan(cfg)):
         for j in range(count):
-            yield ("moe" if kind == "moe" else "dense_attn",
+            yield ("dense_attn" if kind == "dense_attn_mla" else kind,
                    _layer(params[f"stack{i}_{kind}"], j))
+
+
+def _recurrent_state(cfg, batch: int, device):
+    """One layer's zero recurrent state (float32): RWKVState or
+    MambaState."""
+    mod = rwkv6 if cfg.family == "ssm" else mamba2
+    return mod.init_state(cfg, batch, device=device)
 
 
 def _decoder_stack(cfg, params: dict, x: torch.Tensor,
                    positions: torch.Tensor):
     """Run the decoder layer stack, one layer of the stacked tree at a
-    time → (x, the MoE layers' summed aux loss, float32)."""
+    time → (x, the MoE layers' summed aux loss, float32). The recurrent
+    families start every layer from a zero state (a full sequence); the
+    hybrid applies the shared block after every ``attn_every`` layers."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p in _layers(cfg, params):
+    every = _hybrid_chunks(cfg)[1] if cfg.family == "hybrid" else 0
+    for i, (kind, p) in enumerate(_layers(cfg, params)):
         if kind == "moe":
             x, a = _apply_moe(p, cfg, x, positions)
             aux = aux + a
+        elif kind == "rwkv":
+            x, _ = _apply_rwkv(p, cfg, x,
+                               _recurrent_state(cfg, x.shape[0], x.device))
+        elif kind == "mamba":
+            x, _ = _apply_mamba(p, cfg, x,
+                                _recurrent_state(cfg, x.shape[0], x.device))
+            if (i + 1) % every == 0:          # the weight-shared block
+                x = _apply_dense_attn(params["shared_attn"], cfg, x,
+                                      positions)
         else:
             x = _apply_dense_attn(p, cfg, x, positions)
     return x, aux
@@ -229,7 +302,7 @@ def _decoder_stack(cfg, params: dict, x: torch.Tensor,
 class Batch(NamedTuple):
     tokens: torch.Tensor                 # (B, S) int
     targets: torch.Tensor                # (B, S) int
-    frontend: torch.Tensor | None = None  # stub patch/frame embeds (unused)
+    frontend: torch.Tensor | None = None  # (B, P, D) stub patch embeds (vlm)
 
 
 def _head(params: dict) -> dict:
@@ -237,11 +310,20 @@ def _head(params: dict) -> dict:
 
 
 def forward_hidden(cfg, params: dict, batch: Batch):
-    """Full-sequence causal forward → (final hidden states, aux_loss)."""
+    """Full-sequence causal forward → (final hidden states, aux_loss).
+    The vlm family with a ``batch.frontend`` projects the patch
+    embeddings, runs them ahead of the text and drops their positions
+    from the result."""
     _check_family(cfg)
     x = layers.embed_lookup(params["embed"], batch.tokens)
+    vision = cfg.family == "vlm" and batch.frontend is not None
+    if vision:
+        pe = layers.dense(params["vision_proj"], batch.frontend, "none")
+        x = torch.cat([pe.to(x.dtype), x], dim=1)
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     x, aux = _decoder_stack(cfg, params, x, pos)
+    if vision:
+        x = x[:, batch.frontend.shape[1]:]               # text positions
     return layers.apply_norm(params["final_norm"], x, cfg.norm_type), aux
 
 
@@ -251,11 +333,14 @@ def forward_train(cfg, params: dict, batch: Batch):
     return layers.logits_head(_head(params), x), aux
 
 
-def prefill(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def prefill(cfg, params: dict, tokens: torch.Tensor,
+            frontend: torch.Tensor | None = None) -> torch.Tensor:
     """Full-sequence prefill → (B, 1, vocab) last-position logits (the
     cache fill is elided, as in the reference; serving feeds prompts
-    through ``decode_step``)."""
-    x, _ = forward_hidden(cfg, params, Batch(tokens=tokens, targets=tokens))
+    through ``decode_step``). ``frontend``: the vlm family's (B, P, D)
+    patch embeddings."""
+    x, _ = forward_hidden(cfg, params, Batch(tokens=tokens, targets=tokens,
+                                             frontend=frontend))
     return layers.logits_head(_head(params), x[:, -1:, :])
 
 
@@ -267,42 +352,92 @@ class ServeState(NamedTuple):
     caches: Any                 # stacked per layer: attention.KVCache with
                                 # (L, B, S_max, KV, hd) K/V, or (moe)
                                 # mla.MLACache with (L, B, S_max, r) c_kv and
-                                # (L, B, S_max, dr) k_rope; (L, B) lengths
+                                # (L, B, S_max, dr) k_rope; (L, B) lengths;
+                                # (ssm) rwkv6.RWKVState, (L, B, …) float32;
+                                # (hybrid) {"ssm": mamba2.MambaState (L, B,
+                                # …), "shared_kv": KVCache with one cache per
+                                # shared-block application, (n_chunks, B, …)}
     enc_kv: Any                 # cross K/V of the audio family (None here)
     length: torch.Tensor        # scalar int64 — steps taken
+
+
+def _stacked(per, n: int):
+    """A NamedTuple of per-layer tensors → the same with a leading axis of
+    n, each a contiguous copy."""
+    return type(per)(*(a.expand(n, *a.shape).contiguous() for a in per))
 
 
 def init_serve_state(cfg, batch: int, max_len: int,
                      device="cpu") -> ServeState:
     _check_family(cfg)
+    length = torch.zeros((), dtype=torch.int64, device=device)
+    if cfg.family in ("ssm", "hybrid"):
+        states = _stacked(_recurrent_state(cfg, batch, device), cfg.n_layers)
+        if cfg.family == "ssm":
+            return ServeState(states, None, length)
+        # one KV cache per application of the weight-shared block
+        kv = attention.init_cache(cfg, batch, max_len, _dtype(cfg), device)
+        return ServeState({"ssm": states,
+                           "shared_kv": _stacked(kv, _hybrid_chunks(cfg)[0])},
+                          None, length)
     cache = mla if cfg.attn_type == "mla" else attention
     per = cache.init_cache(cfg, batch, max_len, _dtype(cfg), device)
-    caches = type(per)(*(a.expand(cfg.n_layers, *a.shape).contiguous()
-                         for a in per))
-    return ServeState(caches, None,
-                      torch.zeros((), dtype=torch.int64, device=device))
+    return ServeState(_stacked(per, cfg.n_layers), None, length)
+
+
+def _recurrent_step(apply, p: dict, cfg, x: torch.Tensor, states, i: int):
+    """Layer i of a recurrent stack on one token, its state (row i of the
+    stacked ``states``) updated in place."""
+    st = type(states)(*(a[i] for a in states))
+    x, new = apply(p, cfg, x, st)
+    for dst, src in zip(st, new):
+        if dst is not src:
+            dst.copy_(src)
+    return x
 
 
 def decode_step(cfg, params: dict, state: ServeState, tokens: torch.Tensor):
     """One decode step with a filled cache: (B, 1) tokens → ((B, 1, vocab)
-    logits, state). Updates every layer's cache and the step count in place
-    and returns the same state. The moe family's MoE layers route every
-    step's token through all experts' capacity buffers, as the reference
-    does."""
+    logits, state). Updates every layer's cache or recurrent state and the
+    step count in place and returns the same state. The recurrent families
+    take their token-scan forms (a one-token forward through the stack);
+    the hybrid's shared block attends to its own cache at each
+    application. The moe family's MoE layers route every step's token
+    through all experts' capacity buffers, as the reference does."""
     _check_family(cfg)
     x = layers.embed_lookup(params["embed"], tokens)
     c = state.caches
-    step = (mla.mla_decode_step if cfg.attn_type == "mla"
-            else attention.gqa_decode_step)
-    for i, (kind, p) in enumerate(_layers(cfg, params)):
-        h = layers.apply_norm(p["ln1"], x, cfg.norm_type)
-        y, _ = step(p["attn"], cfg, h, type(c)(*(a[i] for a in c)))
-        x = x + y
-        h = layers.apply_norm(p["ln2"], x, cfg.norm_type)
-        if kind == "moe":
-            x = x + moe.moe_apply(p["moe"], cfg, h)[0]
-        else:
-            x = x + layers.mlp_apply(p["mlp"], h, cfg.mlp_type, cfg.quant)
+    if cfg.family == "ssm":
+        for i, (_, p) in enumerate(_layers(cfg, params)):
+            x = _recurrent_step(_apply_rwkv, p, cfg, x, c, i)
+    elif cfg.family == "hybrid":
+        every = _hybrid_chunks(cfg)[1]
+        shared = params["shared_attn"]
+        kv = c["shared_kv"]
+        for i, (_, p) in enumerate(_layers(cfg, params)):
+            x = _recurrent_step(_apply_mamba, p, cfg, x, c["ssm"], i)
+            if (i + 1) % every == 0:
+                h = layers.apply_norm(shared["ln1"], x, cfg.norm_type)
+                y, _ = attention.gqa_decode_step(
+                    shared["attn"], cfg, h,
+                    type(kv)(*(a[i // every] for a in kv)))
+                x = x + y
+                h = layers.apply_norm(shared["ln2"], x, cfg.norm_type)
+                x = x + layers.mlp_apply(shared["mlp"], h, cfg.mlp_type,
+                                         cfg.quant)
+    else:
+        step = (mla.mla_decode_step if cfg.attn_type == "mla"
+                else attention.gqa_decode_step)
+        for i, (kind, p) in enumerate(_layers(cfg, params)):
+            h = layers.apply_norm(p["ln1"], x, cfg.norm_type)
+            y, _ = step(p["attn"], cfg, h, type(c)(*(a[i] for a in c)))
+            x = x + y
+            h = layers.apply_norm(p["ln2"], x, cfg.norm_type)
+            if kind == "moe":
+                x = x + moe.moe_apply(p["moe"], cfg, h)[0]
+            else:
+                x = x + layers.mlp_apply(p["mlp"], h, cfg.mlp_type,
+                                         cfg.quant)
     state.length.add_(1)
     x = layers.apply_norm(params["final_norm"], x, cfg.norm_type)
     return layers.logits_head(_head(params), x), state

@@ -15,10 +15,11 @@ joins a slot the moment one frees up instead of waiting for a batch:
 
 The model behind the step is an adapter with ``init_state`` /
 ``decode_step`` / ``reset_slot`` and a ``device``. The default,
-``TransformerServeModel``, serves the dense and moe LM zoo of
-``models/transformer.py``; ``models/xnor_lm.py::XnorLMServeModel`` plugs
-in the packed XNOR LM (the reference's audio path comes with that
-family). The reference jit-compiles the step once and donates the state;
+``TransformerServeModel``, serves the LM zoo of ``models/transformer.py``
+(dense, moe, vlm, ssm and hybrid; a vlm request is text only, as in the
+reference, whose engine encodes a frontend for audio alone);
+``models/xnor_lm.py::XnorLMServeModel`` plugs in the packed XNOR LM (the
+reference's audio path comes with that family). The reference jit-compiles the step once and donates the state;
 here the step runs eagerly and the adapter updates the state in place.
 ``swap_params`` copies new weights into the live tensors, the counterpart
 of the reference's swap without a recompile: every weight keeps its
@@ -37,8 +38,7 @@ from repro_torch.serve.slots import SlotScheduler
 
 
 class TransformerServeModel:
-    """Default model adapter: the dense and moe families of
-    ``models/transformer.py``.
+    """Default model adapter: the families of ``models/transformer.py``.
 
     Holds copies of ``params`` on its device (a hot-swap overwrites those,
     never the caller's tree); ``arrays`` is their flat tuple, the engine's
@@ -65,10 +65,15 @@ class TransformerServeModel:
             tokens)
 
     def reset_slot(self, state, i: int, n_slots: int):
-        """Zero slot ``i`` of every tensor of every layer's cache (K/V or
-        MLA's latents, and the length), in place."""
-        for t in state.caches:
-            t[:, i].zero_()
+        """Zero slot ``i`` of every tensor of the caches, in place (each
+        keeps its storage), by the reference's rule: axis 1 where it is
+        the slot axis ((L, B, …): K/V, MLA's latents, the recurrent
+        states, the shared block's per-application K/V and every length),
+        else axis 0."""
+        for t in state_tensors(state.caches):
+            part = slot_part(t, i, n_slots)
+            if part is not None:
+                part.zero_()
         return state
 
     def swap_arrays(self, new_params: dict) -> tuple:
@@ -81,6 +86,24 @@ class TransformerServeModel:
                 f"shape or dtype: {_spec(new_params)} != {self._spec}")
         return tuple(t.to(self.device)
                      for t in transformer.tree_leaves(new_params))
+
+
+def state_tensors(tree) -> list[torch.Tensor]:
+    """The tensors of a tuple, NamedTuple or dict state, depth first."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [t for sub in items for t in state_tensors(sub)]
+
+
+def slot_part(t: torch.Tensor, i: int, n_slots: int) -> torch.Tensor | None:
+    """Slot ``i``'s view of a state tensor by the reference's rule: axis 1
+    where it has ``n_slots`` entries, else axis 0, else none."""
+    if t.dim() >= 2 and t.shape[1] == n_slots:
+        return t[:, i]
+    if t.dim() >= 1 and t.shape[0] == n_slots:
+        return t[i]
+    return None
 
 
 def _spec(params: dict) -> dict:

@@ -59,7 +59,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.launch.train_bcnn", "repro_torch.core.throughput",
             "repro_torch.parallel.pipeline",
             "repro_torch.parallel.bcnn_pipeline",
-            "repro_torch.parallel.bcnn_data_parallel"} <= set(modules)
+            "repro_torch.parallel.bcnn_data_parallel",
+            "repro_torch.models.rwkv6", "repro_torch.models.mamba2",
+            "repro_torch.configs.rwkv6_3b", "repro_torch.configs.zamba2_7b",
+            "repro_torch.configs.phi3_vision_4_2b"} <= set(modules)
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {modules!r}:\n"

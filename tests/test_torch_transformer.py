@@ -108,7 +108,7 @@ def test_registry_covers_the_reference_table():
     assert set(configs.BINARY_LM_MODULES) == set(jconfigs.BINARY_LM_NAMES)
 
 
-@pytest.mark.parametrize("family", ["ssm", "hybrid", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["audio"])
 def test_unported_families_raise(family):
     cfg = configs.get_config("qwen3-8b", smoke=True).with_(family=family)
     g = torch.Generator().manual_seed(0)
@@ -123,15 +123,28 @@ def test_unported_families_raise(family):
 
 
 def test_sliding_window_raises():
-    cfg, _, _, params = models("qwen3-8b")
-    cfg = cfg.with_(window=8)
+    """A window set on a dense config raises nothing: gqa_forward takes
+    the blockwise plain attention (no K7 launch) and gqa_decode_step masks
+    the keys out of the window, both as the reference does."""
+    cfg, jcfg, jp, params = models("qwen3-8b")
+    cfg, jcfg = cfg.with_(window=3), jcfg.with_(window=3)
     p = tf.tree_map(lambda a: a[0], params["stack0_dense_attn"])["attn"]
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        attention.gqa_forward(p, cfg, x, torch.arange(4))
+    jpa = jax.tree.map(lambda a: a[0], jp["stack0_dense_attn"])["attn"]
+    x = np.random.default_rng(4).standard_normal(
+        (1, 6, cfg.d_model)).astype(np.float32)
+    kfa.flash_attention.launches = 0
+    got = attention.gqa_forward(p, cfg, torch.from_numpy(x), torch.arange(6))
+    assert kfa.flash_attention.launches == 0
+    want = jattn.gqa_forward(jpa, jcfg, jnp.asarray(x), jnp.arange(6))
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
     cache = attention.init_cache(cfg, 1, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        attention.gqa_decode_step(p, cfg, x[:, :1], cache)
+    jcache = jattn.init_cache(jcfg, 1, 8, jnp.float32)
+    for i in range(6):
+        got, cache = attention.gqa_decode_step(
+            p, cfg, torch.from_numpy(x[:, i:i + 1]), cache)
+        want, jcache = jattn.gqa_decode_step(jpa, jcfg, jnp.asarray(
+            x[:, i:i + 1]), jcache)
+        np.testing.assert_allclose(_np(got), _np(want), **F32)
 
 
 # ------------------------------------------------------------------- params

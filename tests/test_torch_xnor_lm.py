@@ -106,7 +106,7 @@ def test_config_checks_and_param_count_match_reference():
     # the dense LM zoo is registered beside it; unported families raise
     assert configs.get_config("qwen3-8b").family == "dense"
     with pytest.raises(KeyError, match="not ported yet"):
-        configs.get_config("rwkv6-3b")
+        configs.get_config("whisper-medium")
 
 
 def test_binarize_matches_reference():

@@ -1,0 +1,391 @@
+"""The port's vlm, ssm and hybrid families (``repro_torch/models/
+transformer.py`` with ``rwkv6.py`` and ``mamba2.py``) on the CPU against
+the live JAX reference, on the smoke configs of phi-3-vision-4.2b (with
+its stub vision frontend), rwkv6-3b and zamba2-7b (4 Mamba-2 layers, the
+shared block after every 2): configs, the init tree, forward_train and
+prefill (S = 128, the recurrences' chunked forms, and S = 100, their
+token scans), decode steps, prefill against a decode loop, the served
+tokens (with the reference engine's co-tenant and slot-reuse cases of
+``tests/test_serve.py`` / ``test_serve_invariants.py``), the weight
+hot-swap, ``reset_slot`` and the serving CLI.
+
+Both sides run on the reference's ``init_params`` tree carried across by
+``params_from_numpy`` and the same seeded numpy tokens and patch
+embeddings. Tolerances: float32 rtol = atol = 1e-5; served tokens equal.
+
+bf16 logits: the LM zoo's ``BF16`` (rtol 2e-2, atol 6.25e-2) with argmax
+equal wherever the reference's top-1 leads its runner-up by more than
+2·atol, on all but ``BF16_SHARE`` of the elements. These models are
+deeper than the dense smoke configs (zamba2's: 4 Mamba-2 blocks and 2
+shared-block applications), and the reference's own bf16 logits lie
+beyond ``BF16`` from its float32 logits on the same bf16-rounded weights
+(``truth``) at some elements: 20 of 65,536, up to 0.092, for zamba2 at S
+= 128 (the port's: 16, up to 0.101). So the rest of the bf16 check is
+measured against that noise: no element of the port's logits lies
+further from the reference's than twice the reference's largest distance
+from ``truth``, and the port's RMS distance from ``truth`` is at most
+1.25 times the reference's (measured 0.93–1.06).
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import transformer as jt
+from repro.serve import ServingEngine as JServingEngine
+from repro_torch import configs
+from repro_torch.kernels import flash_attention as kfa
+from repro_torch.launch import serve
+from repro_torch.models import attention, mamba2, rwkv6
+from repro_torch.models import transformer as tf
+from repro_torch.serve.engine import ServingEngine
+
+ARCHS = ("phi-3-vision-4.2b", "rwkv6-3b", "zamba2-7b")
+F32 = dict(rtol=1e-5, atol=1e-5)
+BF16 = dict(rtol=2e-2, atol=6.25e-2)
+BF16_SHARE = 1e-3
+jforward_train = jax.jit(jt.forward_train, static_argnums=0)
+jdecode_step = jax.jit(jt.decode_step, static_argnums=0)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def models(arch: str, dtype: str = "float32", seed: int = 0):
+    """(port cfg, reference cfg, reference params, port params). The
+    bfloat16 tree is the float32 one cast leaf by leaf to the dtypes of
+    the reference's bfloat16 ``init_params``."""
+    jcfg = jconfigs.get_config(arch, smoke=True).with_(dtype=dtype)
+    cfg = configs.get_config(arch, smoke=True).with_(dtype=dtype)
+    if dtype == "float32":
+        jp = jax.jit(jt.init_params, static_argnums=0)(
+            jcfg, jax.random.PRNGKey(seed))
+    else:
+        spec = jax.eval_shape(lambda: jt.init_params(
+            jcfg, jax.random.PRNGKey(seed)))
+        jp = jax.tree.map(lambda a, s: a.astype(s.dtype),
+                          models(arch, "float32", seed)[2], spec)
+    return cfg, jcfg, jp, tf.params_from_numpy(
+        cfg, jax.tree.map(np.asarray, jp))
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+def _tokens(cfg, shape, seed=0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+
+
+def _frontend(cfg, b: int, seed=3):
+    """(port, reference) patch embeddings of the vlm family, else None."""
+    if cfg.family != "vlm":
+        return None, None
+    fe = np.random.default_rng(seed).standard_normal(
+        (b, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+    return torch.from_numpy(fe), jnp.asarray(fe)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_matches_reference(arch):
+    from importlib import import_module
+    mod = import_module(configs.ARCH_MODULES[arch])
+    jmod = import_module(jconfigs.ARCH_MODULES[arch])
+    for name in ("CONFIG", "SMOKE_CONFIG"):
+        assert (dataclasses.asdict(getattr(mod, name))
+                == dataclasses.asdict(getattr(jmod, name)))
+    assert ([dataclasses.asdict(s) for s in mod.SHAPES]
+            == [dataclasses.asdict(s) for s in jmod.SHAPES])
+    assert mod.SKIPPED_SHAPES == jmod.SKIPPED_SHAPES
+    assert configs.get_config(arch).param_count() == jconfigs.get_config(
+        arch).param_count()
+
+
+def test_only_whisper_is_not_ported():
+    assert configs.NOT_PORTED == ("whisper-medium",)
+    assert set(configs.ARCH_NAMES) | set(configs.NOT_PORTED) == set(
+        jconfigs.ARCH_NAMES)
+    with pytest.raises(KeyError, match="not ported"):
+        configs.get_config("whisper-medium")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_params_matches_reference_tree(arch):
+    cfg, jcfg, _, _ = models(arch)
+    cfg, jcfg = (c.with_(dtype="bfloat16") for c in (cfg, jcfg))
+    jp = jax.eval_shape(lambda: jt.init_params(jcfg, jax.random.PRNGKey(0)))
+    p = tf.init_params(cfg, torch.Generator().manual_seed(0))
+    extra = {"phi-3-vision-4.2b": {"stack0_dense_attn", "vision_proj"},
+             "rwkv6-3b": {"stack0_rwkv"},
+             "zamba2-7b": {"stack0_mamba", "shared_attn"}}[arch]
+    assert set(p) == {"embed", "final_norm", "head"} | extra
+    assert (tf.tree_map(lambda t: (tuple(t.shape), str(t.dtype)[6:]), p)
+            == jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), jp))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_params_cross_unchanged(arch):
+    _, _, jp, p = models(arch, "bfloat16")
+    back = tf.numpy_params(p)
+    for path, a in jax.tree_util.tree_leaves_with_path(jp):
+        node = back
+        for k in path:
+            node = node[k.key]
+        np.testing.assert_array_equal(node, np.asarray(a, np.float32))
+    rebuilt = tf.tree_unflatten(p, tf.tree_leaves(p))
+    assert all(a is b for a, b in zip(tf.tree_leaves(rebuilt),
+                                      tf.tree_leaves(p)))
+
+
+def _assert_argmax(got, want, atol):
+    top2 = np.sort(want, axis=-1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > 2 * atol
+    assert np.all((got.argmax(-1) == want.argmax(-1)) | ~clear)
+
+
+def _assert_bf16(got, want, truth):
+    """bf16 logits ``got`` against the reference's ``want``, with
+    ``truth`` the reference's float32 logits on the same bf16 weights
+    (the module docstring gives the reasons)."""
+    got, want, truth = _np(got), _np(want), _np(truth)
+    out = np.abs(got - want) > BF16["atol"] + BF16["rtol"] * np.abs(want)
+    assert out.mean() <= BF16_SHARE, f"{out.sum()} of {out.size} beyond BF16"
+    noise = np.abs(want - truth)
+    assert np.abs(got - want).max() <= 2 * noise.max()
+    rms = lambda a: float(np.sqrt(np.mean(np.square(a))))
+    assert rms(got - truth) <= 1.25 * rms(want - truth)
+    _assert_argmax(got, want, BF16["atol"])
+
+
+@pytest.mark.parametrize("s", [128, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_and_prefill_match_reference(arch, dtype, s):
+    """forward_train's logits (text positions only for the vlm, its
+    patches run ahead of them) and prefill's last position."""
+    cfg, jcfg, jp, p = models(arch, dtype)
+    toks = _tokens(cfg, (2, s))
+    jtoks = jnp.asarray(toks, jnp.int32)
+    fe, jfe = _frontend(cfg, 2)
+    want, _ = jforward_train(jcfg, jp, jt.Batch(jtoks, jtoks, jfe))
+    t = torch.from_numpy(toks)
+    kfa.flash_attention.launches = 0
+    logits, aux = tf.forward_train(cfg, p, tf.Batch(t, t, fe))
+    pre = tf.prefill(cfg, p, t, frontend=fe)
+    assert kfa.flash_attention.launches == 0          # CPU: plain versions
+    assert logits.shape == (2, s, cfg.vocab_size) and float(aux) == 0.0
+    assert logits.dtype == (torch.bfloat16 if dtype == "bfloat16"
+                            else torch.float32)
+    if dtype == "float32":
+        for g, w in ((logits, want), (pre, want[:, -1:])):
+            np.testing.assert_allclose(_np(g), _np(w), **F32)
+            _assert_argmax(_np(g), _np(w), F32["atol"])
+        np.testing.assert_allclose(_np(pre), _np(logits)[:, -1:], **F32)
+        return
+    jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+    truth, _ = jforward_train(jcfg.with_(dtype="float32"), jp32,
+                              jt.Batch(jtoks, jtoks, jfe))
+    _assert_bf16(logits, want, truth)
+    _assert_bf16(pre, want[:, -1:], truth[:, -1:])
+    np.testing.assert_allclose(_np(pre), _np(logits)[:, -1:], **BF16)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_binary_weights_matches_reference(arch):
+    """quant="binary_weights" (±1 weights with a per-channel α in every
+    projection of the mixes, the Mamba-2 block and the attention) in
+    float32, S = 128, with the vlm's frontend."""
+    cfg, jcfg, jp, p = models(arch)
+    cfg, jcfg = (c.with_(quant="binary_weights") for c in (cfg, jcfg))
+    toks = _tokens(cfg, (2, 128), seed=5)
+    jtoks = jnp.asarray(toks, jnp.int32)
+    fe, jfe = _frontend(cfg, 2)
+    want, _ = jforward_train(jcfg, jp, jt.Batch(jtoks, jtoks, jfe))
+    t = torch.from_numpy(toks)
+    got, _ = tf.forward_train(cfg, p, tf.Batch(t, t, fe))
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
+    _assert_argmax(_np(got), _np(want), F32["atol"])
+
+
+def test_vlm_frontend_changes_the_text_logits():
+    cfg, _, _, p = models("phi-3-vision-4.2b")
+    t = torch.from_numpy(_tokens(cfg, (2, 12)))
+    fe, _ = _frontend(cfg, 2)
+    assert not torch.allclose(tf.prefill(cfg, p, t, frontend=fe),
+                              tf.prefill(cfg, p, t))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_steps_match_reference(arch):
+    """Eight decode steps of 2 slots from a zero state and an empty cache
+    of 8: logits at every step and every state tensor after."""
+    cfg, jcfg, jp, p = models(arch)
+    jstate = jt.init_serve_state(jcfg, 2, 8)
+    state = tf.init_serve_state(cfg, 2, 8)
+    toks = _tokens(cfg, (2, 8), seed=1)
+    for i in range(8):
+        want, jstate = jdecode_step(jcfg, jp, jstate,
+                                    jnp.asarray(toks[:, i:i + 1], jnp.int32))
+        got, state = tf.decode_step(cfg, p, state,
+                                    torch.from_numpy(toks[:, i:i + 1]))
+        np.testing.assert_allclose(_np(got), _np(want), **F32)
+    got_leaves = _leaves(state.caches)
+    want_leaves = jax.tree.leaves(jstate.caches)
+    assert len(got_leaves) == len(want_leaves)
+    for g, w in zip(got_leaves, want_leaves):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(_np(g), _np(w), **F32)
+    assert int(state.length) == int(jstate.length) == 8
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    """A state's tensors in ``jax.tree.leaves``' order (dict keys
+    sorted)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = ([tree[k] for k in sorted(tree)] if isinstance(tree, dict)
+             else tree)
+    return [t for sub in items for t in _leaves(sub)]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_matches_decode_loop(arch):
+    """A 64-token prompt through prefill (the recurrences' chunked forms,
+    K7's plain version) and through decode_step token by token (the token
+    scans, the cache), in the port alone."""
+    cfg, _, _, p = models(arch)
+    toks = torch.from_numpy(_tokens(cfg, (1, 64), seed=2))
+    want = tf.prefill(cfg, p, toks)[0, -1]
+    state = tf.init_serve_state(cfg, 1, 64)
+    for i in range(64):
+        logits, state = tf.decode_step(cfg, p, state, toks[:, i:i + 1])
+    torch.testing.assert_close(logits[0, -1], want, rtol=1e-4, atol=1e-4)
+    assert int(logits[0, -1].argmax()) == int(want.argmax())
+
+
+MIXED = ([3, 7, 5, 2, 6], 6)            # prompt lengths, max_new
+
+
+def _prompts(cfg, seed=9, lengths=MIXED[0]):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, (n,)).tolist() for n in lengths]
+
+
+def _serve(eng, prompts, max_new=MIXED[1]):
+    rids = [eng.submit(pr, max_new_tokens=max_new) for pr in prompts]
+    out = eng.run()
+    return [out[r] for r in rids]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_engine_matches_reference(arch):
+    """Five mixed-length prompts through 3 slots (slots reused and reset
+    mid-run): every request's tokens equal the reference engine's."""
+    cfg, jcfg, jp, p = models(arch)
+    prompts = _prompts(cfg)
+    want = _serve(JServingEngine(jcfg, jp, n_slots=3, max_len=24), prompts)
+    eng = ServingEngine(cfg, p, n_slots=3, max_len=24, device="cpu")
+    assert _serve(eng, prompts) == want
+    assert all(len(t) == MIXED[1] for t in want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_co_tenants_and_slot_reuse(arch):
+    """test_serve.py's slot independence (a request alone == beside three
+    co-tenants) and slot reuse (a request in a slot another just left ==
+    a fresh engine), and test_serve_invariants.py's reset isolation, in
+    the port, each equal to the reference engine's tokens."""
+    cfg, jcfg, jp, p = models(arch)
+    target, *others = _prompts(cfg, seed=1, lengths=(5, 4, 4, 4))
+
+    def both(prompts, n_slots, max_new=6):
+        got = _serve(ServingEngine(cfg, p, n_slots=n_slots, max_len=32,
+                                   device="cpu"), prompts, max_new)
+        want = _serve(JServingEngine(jcfg, jp, n_slots=n_slots, max_len=32),
+                      prompts, max_new)
+        assert got == want
+        return got
+
+    alone = both([target], 4)[0]
+    assert both([target] + others, 4)[0] == alone
+    # one slot: the second request decodes where the first one was
+    a, b = _prompts(cfg, seed=42, lengths=(6, 5))
+    assert both([a, b], 1)[1] == both([b], 1)[0]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_swap_params_in_place(arch):
+    cfg, _, _, p = models(arch)
+    p2 = models(arch, seed=1)[3]
+    before = [t.clone() for t in tf.tree_leaves(p)]
+    prompts = _prompts(cfg)
+    eng = ServingEngine(cfg, p, n_slots=3, max_len=24, device="cpu")
+    first = _serve(eng, prompts)
+    ptrs = [t.data_ptr() for t in eng.params]
+    eng.swap_params(eng.model.swap_arrays(p2))
+    assert [t.data_ptr() for t in eng.params] == ptrs
+    assert all(torch.equal(a, b) for a, b in zip(before, tf.tree_leaves(p)))
+    after = _serve(eng, prompts)
+    fresh = _serve(ServingEngine(cfg, p2, n_slots=3, max_len=24,
+                                 device="cpu"), prompts)
+    assert after == fresh and after != first
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_reset_slot_zeroes_every_state_tensor(arch):
+    """reset_slot zeroes slot 1 of every tensor of the state (recurrent
+    states, the per-application K/V and their lengths), in place, and
+    leaves the other slots alone."""
+    cfg, _, _, p = models(arch)
+    eng = ServingEngine(cfg, p, n_slots=3, max_len=8, device="cpu")
+    caches = eng.state.caches
+    kinds = {"phi-3-vision-4.2b": attention.KVCache,
+             "rwkv6-3b": rwkv6.RWKVState}
+    if arch in kinds:
+        assert isinstance(caches, kinds[arch])
+    else:
+        assert isinstance(caches["ssm"], mamba2.MambaState)
+        assert isinstance(caches["shared_kv"], attention.KVCache)
+        assert caches["shared_kv"].length.shape == (2, 3)   # (n_chunks, B)
+    tensors = _leaves(caches)
+    for t in tensors:
+        t.fill_(1)
+    ptrs = [t.data_ptr() for t in tensors]
+    eng.model.reset_slot(eng.state, 1, 3)
+    assert [t.data_ptr() for t in _leaves(eng.state.caches)] == ptrs
+    for t in tensors:
+        assert t.shape[1] == 3
+        assert not bool(t[:, 1].any())
+        assert bool((t[:, 0] == 1).all()) and bool((t[:, 2] == 1).all())
+
+
+def test_hybrid_needs_whole_chunks():
+    cfg = configs.get_config("zamba2-7b", smoke=True).with_(
+        n_layers=5, dtype="float32")
+    with pytest.raises(ValueError, match="attn_every"):
+        tf.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("quant", ["none", "binary"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_cli_cpu(capsys, arch, quant):
+    kfa.flash_attention.launches = 0
+    assert serve.main(["--device", "cpu", "--arch", arch, "--smoke",
+                       "--quant", quant, "--swap", "--requests", "3",
+                       "--max-new", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "served 6/6 requests" in out and "hot-swap OK" in out
+    assert kfa.flash_attention.launches == 0
