@@ -137,6 +137,28 @@ Phases, each fatal on failure (nothing is caught):
    decode step profiled; a mid-run hot-swap keeping every weight's
    storage); then a table of the prefill and decode-step rows and the
    phase's wall time.
+7d. The audio family at whisper-medium's full width
+   (``configs/whisper_medium.py``): (a) a cut to 2 encoder and 2 decoder
+   layers in float32, ``_encode``, ``prefill`` and ``forward_train`` at
+   (2, 128) on (2, 1500, 1024) float32 frames, card against the CPU port
+   at ``DENSE_TOL``, 2 non-causal and 2 causal K7 simt launches a
+   forward (``K7Log`` reads each call's ``causal`` and variant); (b) its
+   ``prefill`` against a 64-token prompt fed through ``decode_step`` on
+   the card given the encoder K/V; (c) the whole bf16 model prefilled at
+   (1, 4096) on bf16 frames, 24 non-causal and 24 causal K7 tc launches,
+   timed, its peak memory read, profiled with K7's share and the
+   encoder's and the cross-attentions' kernel ms apart; (d) served
+   through ``ServingEngine`` at 4 slots on float32 frames (8 requests; 24
+   K7 simt launches in each admission's encode, none in decode; request
+   0 equal to a hand-rolled decode loop; every reset slot's caches read
+   back zero while the per-slot encoder K/V keeps its storage and
+   contents; an admission's encode and a decode step profiled; a mid-run
+   hot-swap keeping every weight's storage); (e) the served weights
+   packed on the card (``serve/packing.py``: packed fraction, bytes
+   against bf16) and served at quant binary_weights, and the cut's
+   packed tree built on the card and on the CPU, equal bit for bit, its
+   ``prefill`` card vs CPU at ``DENSE_TOL``; then a summary table and
+   the phase's wall time.
 8. Training (``train/bcnn_train.py``) at full Table 2 width: one train
    step at batch 64 from ``numpy_params`` latents on the card and on the
    CPU (loss, every gradient, Adam moments, running statistics and the
@@ -167,7 +189,10 @@ and 192, (1, 2, 1, 256) at S = 200 non-causal and (1, 2, 2, 33) at S = 65
 DeepSeek-V2-Lite's MLA shape (1, 16, 16, 192) at S = 4096, causal
 (``FLASH_MLA``), phi-3-vision's (1, 32, 32, 96) at S = 4096 and 4672
 (576 patches + 4096 tokens) and zamba2's (1, 32, 32, 112) at S = 4096
-(``FLASH_VLM``, ``FLASH_VLM_RAGGED``, ``FLASH_HYBRID``), in bfloat16 only (tolerances ``FLASH_TOL``), each in the variant ``pick_variant`` chooses (printed
+(``FLASH_VLM``, ``FLASH_VLM_RAGGED``, ``FLASH_HYBRID``), in bfloat16 only,
+and whisper-medium's encoder shape (1, 16, 16, 64) at S = 1500,
+non-causal (``FLASH_AUDIO``, both dtypes; in bf16 the last of the 128-row
+tiles is ragged) (tolerances ``FLASH_TOL``), each in the variant ``pick_variant`` chooses (printed
 from the launch counters): "tc" (``flash_attention_tc``, bf16 at hd 64 /
 128) on contiguous tensors and on the strided head-major views the model
 hands over, "simt" (``flash_attention``) on everything else. Before them
@@ -368,6 +393,12 @@ FLASH_VLM = (1, 32, 32, 96, FLASH_PATH_S, True)
 FLASH_HYBRID = (1, 32, 32, 112, FLASH_PATH_S, True)
 FLASH_VLM_RAGGED = (1, 32, 32, 96, 576 + FLASH_PATH_S, True)
 FLASH_CASES += [FLASH_VLM, FLASH_HYBRID, FLASH_VLM_RAGGED]
+# whisper-medium's encoder self-attention: 1500 frames, non-causal, in
+# float32 (simt: the served path encodes float32 frames) and bf16 (tc: a
+# prefill with bf16 frames; 11.7 tiles of 128 rows, so the last is
+# ragged and only the key mask at S keeps the pad keys out)
+FLASH_AUDIO = (1, 16, 16, 64, 1500, False)
+FLASH_CASES += [FLASH_AUDIO]
 FLASH_DTYPES = {c: (torch.bfloat16,)
                 for c in (FLASH_MLA, FLASH_VLM, FLASH_HYBRID,
                           FLASH_VLM_RAGGED)}
@@ -436,6 +467,23 @@ RECURRENT_PROMPT = 16
 RECURRENT_NEW = 16
 RECURRENT_MAX_LEN = 40           # prompt 16 + 16 new tokens fit
 RECURRENT_SWAP_AT = 12           # engine steps before the mid-run swap
+# the audio family (phase 7d): whisper-medium cut to 2 encoder and 2
+# decoder layers at full width in float32 (card vs CPU port at
+# DENSE_TOL; prefill vs a decode loop), then whole in bf16: prefilled at
+# S = 4096 on bf16 frames (K7 tc, non-causal in the encoder, causal in
+# the decoder), served at 4 slots on float32 frames (the reference's
+# engine and CLI pass float32, so admission encodes in float32: K7
+# simt) with a mid-run hot-swap, and its packed form (serve/packing.py)
+# served at quant binary_weights
+AUDIO_ARCH = "whisper-medium"
+AUDIO_CUT_LAYERS = 2
+AUDIO_CUT_TOKENS = (2, 128)
+AUDIO_DECODE_PROMPT = 64
+AUDIO_REQUESTS = 8
+AUDIO_PROMPT = 16
+AUDIO_NEW = 16
+AUDIO_MAX_LEN = 40               # prompt 16 + 16 new tokens fit
+AUDIO_SWAP_AT = 12               # engine steps before the mid-run swap
 # training (phase 8): the default recipe, the crash step, the card-vs-CPU
 # step's tolerances, and where checkpoints and the artifact go (inside
 # the checkout, gitignored, removed at the end)
@@ -3182,6 +3230,495 @@ def recurrent_phase(dev: torch.device) -> int:
     return launches
 
 
+class K7Log:
+    """Records (causal, variant launched) of every
+    ``kernels/ops.py::flash_attention`` call made on the card inside the
+    ``with`` block (the variant read from K7's launch counters)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as kfa
+        from repro_torch.kernels import ops
+        self.calls, self._fn = [], ops.flash_attention
+
+        def logged(q, k, v, *, causal=True):
+            n_tc = kfa.flash_attention.launches_tc
+            n_simt = kfa.flash_attention.launches_simt
+            out = self._fn(q, k, v, causal=causal)
+            ran = ("tc" if kfa.flash_attention.launches_tc > n_tc else
+                   "simt" if kfa.flash_attention.launches_simt > n_simt
+                   else "plain")
+            self.calls.append((causal, ran))
+            return out
+        ops.flash_attention = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_attention = self._fn
+
+    def count(self, causal: bool, variant: str) -> int:
+        return sum(c == (causal, variant) for c in self.calls)
+
+
+def audio_extra_params(cfg) -> int:
+    """Parameters of the audio tree that ``ModelConfig.param_count``
+    counts otherwise: the decoder's cross-attention (4 d² a layer, where
+    the config counts d² a layer of the encoder), the frame projection
+    (d²) and the LayerNorms' scales and biases (2 a block of the
+    encoder, 3 of the decoder, the encoder's and the final norm)."""
+    d = cfg.d_model
+    return ((4 * cfg.n_layers - cfg.n_encoder_layers + 1) * d * d
+            + (4 * cfg.n_encoder_layers + 6 * cfg.n_layers + 4) * d)
+
+
+def audio_cut(full, rng, dev) -> int:
+    """Phase 7d (a): ``full`` cut to ``AUDIO_CUT_LAYERS`` encoder and
+    decoder layers at full width, float32: ``_encode``, ``prefill`` and
+    ``forward_train`` at ``AUDIO_CUT_TOKENS`` on float32 frames, the card
+    against the CPU port at ``DENSE_TOL``, each forward with K7's
+    counters zeroed just before and read just after (2 non-causal and 2
+    causal simt launches). (b) On the cut, ``prefill`` against an
+    ``AUDIO_DECODE_PROMPT``-token prompt fed through ``decode_step`` on
+    the card given the encoder K/V. (e, second half) The cut's packed
+    form (``serve/packing.py``) built on the card and on the CPU: the
+    same words and α bit for bit, and its prefill card vs CPU at
+    ``DENSE_TOL``. Returns the K7 launches of (a) and (e)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import packing
+
+    cut = full.with_(n_layers=AUDIO_CUT_LAYERS,
+                     n_encoder_layers=AUDIO_CUT_LAYERS, dtype="float32")
+    params = tf.init_params(
+        cut, torch.Generator(device=dev).manual_seed(SEED), dev)
+    params_cpu = tf.tree_map(lambda x: x.cpu(), params)
+    tag = f"[{cut.name} cut]"
+    print(f"{tag} {cut.n_encoder_layers} encoder + {cut.n_layers} decoder "
+          f"layers at full width, float32, "
+          f"{dense_tree_bytes(params) / 1e9:.3f} GB of weights; tokens "
+          f"{AUDIO_CUT_TOKENS}, float32 frames ({AUDIO_CUT_TOKENS[0]}, "
+          f"{cut.encoder_seq}, {cut.d_model})")
+    b, s = AUDIO_CUT_TOKENS
+    toks = torch.from_numpy(rng.integers(0, cut.vocab_size, (b, s)))
+    fe = torch.from_numpy(rng.standard_normal(
+        (b, cut.encoder_seq, cut.d_model)).astype(np.float32))
+    n_attn = cut.n_layers + cut.n_encoder_layers
+    launches = 0
+    zero_k7()
+    with K7Log() as log:
+        got = tf._encode(cut, params, fe.to(dev))
+    torch.cuda.synchronize()
+    check(log.count(False, "simt") == cut.n_encoder_layers == len(log.calls),
+          f"{tag} _encode: K7 calls {log.calls}, expected "
+          f"{cut.n_encoder_layers} non-causal simt")
+    launches += len(log.calls)
+    want = tf._encode(cut, params_cpu, fe)
+    for g, w, what in zip(got, want, "KV"):
+        err = float((g.cpu() - w).abs().max())
+        check(g.dtype == torch.float32 and torch.allclose(g.cpu(), w,
+                                                          **DENSE_TOL),
+              f"{tag} _encode {what}: max |diff| {err:.3g}")
+        print(f"{tag} _encode {what} {tuple(g.shape)} float32: card == CPU "
+              f"port, max |diff| {err:.3g}")
+    del got, want
+    for what in ("prefill", "forward_train"):
+        def on(p, x, f, what=what):
+            if what == "prefill":
+                return tf.prefill(cut, p, x, frontend=f)
+            return tf.forward_train(cut, p, tf.Batch(x, x, f))[0]
+        zero_k7()
+        with K7Log() as log:
+            got = on(params, toks.to(dev), fe.to(dev))
+        torch.cuda.synchronize()
+        n_k7 = kfa.flash_attention.launches
+        check(n_k7 == n_attn == kfa.flash_attention.launches_simt
+              and log.count(False, "simt") == cut.n_encoder_layers
+              and log.count(True, "simt") == cut.n_layers,
+              f"{tag} {what}: {n_k7} K7 launches, calls {log.calls}, "
+              f"expected {cut.n_encoder_layers} non-causal + "
+              f"{cut.n_layers} causal simt")
+        launches += n_k7
+        want = on(params_cpu, toks, fe)
+        msg = logits_agree(got.cpu(), want, torch.ones(got.shape[:2],
+                                                       dtype=bool),
+                           DENSE_TOL, f"{tag} {what}")
+        print(f"{tag} {what}: card == CPU port: {msg}; {n_k7} K7 launches, "
+              f"all simt ({cut.n_encoder_layers} non-causal at S = "
+              f"{cut.encoder_seq}, {cut.n_layers} causal at S = {s})")
+
+    # (b) prefill against a decode loop on the card, given the encoder K/V
+    prompt = torch.from_numpy(rng.integers(
+        0, cut.vocab_size, (1, AUDIO_DECODE_PROMPT))).to(dev)
+    f1 = fe[:1].to(dev)
+    want = tf.prefill(cut, params, prompt, frontend=f1)[0, -1]
+    state = tf.init_serve_state(cut, 1, AUDIO_DECODE_PROMPT, dev)
+    state = state._replace(enc_kv=tf._encode(cut, params, f1))
+    zero_k7()
+    for i in range(AUDIO_DECODE_PROMPT):
+        logits, state = tf.decode_step(cut, params, state,
+                                       prompt[:, i:i + 1])
+    got = logits[0, -1]
+    err = float((got - want).abs().max())
+    check(kfa.flash_attention.launches == 0,
+          f"{tag} the decode steps launched K7")
+    check(torch.allclose(got, want, **DENSE_TOL)
+          and int(got.argmax()) == int(want.argmax()),
+          f"{tag} prefill vs decode_step on the card: max |diff| {err:.3g}")
+    print(f"{tag} prefill == {AUDIO_DECODE_PROMPT} decode steps on the "
+          f"card given the encoder K/V: last logits max |diff| {err:.3g} "
+          f"(rtol = atol = {DENSE_TOL['atol']}), argmax equal, 0 K7 "
+          f"launches in decode")
+    del state, logits
+
+    # (e, second half) the packed cut: built on both devices, card vs CPU
+    packed = packing.pack_params_for_serving(params)
+    packed_cpu = packing.pack_params_for_serving(params_cpu)
+    leaves = tf.tree_leaves(packed)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(
+        leaves, tf.tree_leaves(packed_cpu)))
+    check(same, f"{tag} the packed tree built on the card differs from the "
+          f"one built on the CPU")
+    zero_k7()
+    got = tf.prefill(cut, packed, toks.to(dev), frontend=fe.to(dev))
+    torch.cuda.synchronize()
+    n_k7 = kfa.flash_attention.launches
+    check(n_k7 == n_attn, f"{tag} packed prefill: {n_k7} K7 launches")
+    launches += n_k7
+    want = tf.prefill(cut, packed_cpu, toks, frontend=fe)
+    msg = logits_agree(got.cpu(), want, torch.ones(got.shape[:2], dtype=bool),
+                       DENSE_TOL, f"{tag} packed prefill")
+    print(f"{tag} packed (packed_fraction "
+          f"{packing.packed_fraction(packed):.4f}): the card's tree == the "
+          f"CPU's bit for bit ({len(leaves)} leaves); prefill card == CPU "
+          f"port: {msg}; {n_k7} K7 launches")
+    return launches
+
+
+def audio_serve(eng, rng, tag: str, requests: int, swap_to=None):
+    """Serve ``requests`` requests (prompt ``AUDIO_PROMPT``, ``AUDIO_NEW``
+    new tokens, float32 frames drawn after each prompt, as the CLI draws
+    them) through ``eng``; with ``swap_to``, hot-swap its weights after
+    ``AUDIO_SWAP_AT`` steps. Returns (rids, outputs, prompts, frames, K7
+    launches inside admissions' encodes, K7 launches in all, seconds)."""
+    from repro_torch.kernels import flash_attention as kfa
+    cfg, model = eng.cfg, eng.model
+    in_encode = [0]
+    encode = model.encode
+
+    def counted(arrays, frames):
+        n = kfa.flash_attention.launches
+        out = encode(arrays, frames)
+        in_encode[0] += kfa.flash_attention.launches - n
+        return out
+    model.encode = counted
+    prompts, frames = [], []
+    for _ in range(requests):
+        prompts.append(rng.integers(0, cfg.vocab_size,
+                                    (AUDIO_PROMPT,)).tolist())
+        frames.append(rng.standard_normal(
+            (cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    zero_k7()
+    t0 = time.perf_counter()
+    rids = [eng.submit(pr, max_new_tokens=AUDIO_NEW, frontend=f)
+            for pr, f in zip(prompts, frames)]
+    if swap_to is None:
+        out = eng.run()
+    else:
+        out = eng.run(max_steps=AUDIO_SWAP_AT)
+        eng.swap_params(swap_to())
+        out.update(eng.run())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    model.encode = encode
+    check(sorted(out) == sorted(rids) and all(
+        len(out[r]) == AUDIO_NEW for r in rids),
+        f"{tag} requests lost or short")
+    return (rids, out, prompts, frames, in_encode[0],
+            kfa.flash_attention.launches, dt)
+
+
+def audio_full(full, rng, dev) -> tuple[int, int, list]:
+    """Phase 7d (c): ``full`` whole in bf16, ``prefill`` at (1,
+    ``FLASH_PATH_S``) on bf16 frames: 24 non-causal and 24 causal K7 tc
+    launches required, timed (CUDA events), its peak memory read,
+    profiled with K7's share, and the encoder's and the 24
+    cross-attentions' kernel ms profiled apart. (d) Served at 4 slots
+    with float32 frames: every request done, 24 K7 simt launches in each
+    admission's encode and none in a decode step, request 0 equal to a
+    hand-rolled decode loop, every reset slot's caches zero while the
+    per-slot encoder K/V kept storage and contents; a decode step and an
+    admission's encode profiled; a second seed's weights hot-swapped
+    mid-run with every weight keeping its storage. (e) The served
+    weights packed on the card (``serve/packing.py``): packed_fraction
+    and weight bytes against bf16, served at 4 slots at quant
+    binary_weights. Returns (K7 simt, K7 tc launches, summary rows)."""
+    import gc
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import packing
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.slots import latency_stats
+
+    name = full.name
+    n_enc, n_dec = full.n_encoder_layers, full.n_layers
+    t0 = time.perf_counter()
+    params = tf.init_params(
+        full, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_par = sum(x.numel() for x in tf.tree_leaves(params))
+    extra = audio_extra_params(full)
+    bf16_bytes = dense_tree_bytes(params)
+    print(f"[{name}] full: {n_enc} encoder + {n_dec} decoder layers, d "
+          f"{full.d_model}, {n_par:,} parameters ({full.param_count():,} "
+          f"counted by the config + {extra:,} it counts otherwise), "
+          f"{bf16_bytes / 1e9:.3f} GB, made on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(n_par == full.param_count() + extra,
+          f"[{name}] parameter count differs from the config's")
+
+    # (c) the bf16 prefill on bf16 frames: K7 tc in both stacks
+    fe = torch.randn((1, full.encoder_seq, full.d_model),
+                     generator=torch.Generator(device=dev).manual_seed(SEED),
+                     device=dev).to(torch.bfloat16)
+    toks = torch.from_numpy(rng.integers(0, full.vocab_size,
+                                         (1, FLASH_PATH_S))).to(dev)
+
+    def prefill():
+        return tf.prefill(full, params, toks, frontend=fe)
+
+    prefill()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_k7()
+    with K7Log() as log:
+        logits = prefill()
+    torch.cuda.synchronize()
+    n_tc = kfa.flash_attention.launches_tc
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(n_tc == n_enc + n_dec == kfa.flash_attention.launches
+          and log.count(False, "tc") == n_enc
+          and log.count(True, "tc") == n_dec,
+          f"[{name} prefill] {kfa.flash_attention.launches} K7 launches "
+          f"({n_tc} tc), calls {log.calls}; expected {n_enc} non-causal + "
+          f"{n_dec} causal tc")
+    check(logits.shape == (1, 1, full.vocab_size)
+          and logits.dtype == torch.bfloat16
+          and bool(logits.isfinite().all()),
+          f"[{name} prefill] logits malformed or not finite")
+    shape = f"(1, {FLASH_PATH_S}), bf16 frames (1, {full.encoder_seq})"
+    ev_ms = time_ms(prefill, reps=3, warmup=0)
+    print(f"[{name} prefill] {shape}: logits finite, {n_tc} K7 launches, "
+          f"all tc (hd {full.head_dim}: {n_enc} non-causal at S = "
+          f"{full.encoder_seq}, {n_dec} causal at S = {FLASH_PATH_S}), "
+          f"peak memory {peak:.2f} GB; CUDA events {ev_ms:.2f} ms per "
+          f"prefill")
+    wall, busy, n_launch, rows = profile_call(prefill, 2, f"prefill {shape}")
+    k7_ms = sum(r[0] for r in rows if "flash_attention_tc" in r[2])
+    _, enc_ms, enc_n, _ = profile_call(
+        lambda: tf._encode(full, params, fe), 2,
+        f"encoder alone, bf16 frames (1, {full.encoder_seq})")
+    ek, ev = tf._encode(full, params, fe)
+    layers_ = [tf._layer(params["stack0_dec_xattn"], i) for i in range(n_dec)]
+    h = torch.randn((1, FLASH_PATH_S, full.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        SEED)).to(torch.bfloat16)
+    _, x_ms, x_n, _ = profile_call(
+        lambda: [attention.cross_attn_forward(p["xattn"], full, h, ek[i],
+                                              ev[i])
+                 for i, p in enumerate(layers_)], 2,
+        f"the {n_dec} cross-attentions alone at S = {FLASH_PATH_S}")
+    print(f"  K7 tc: {k7_ms:.4f} ms of {busy:.4f} ms of kernels per prefill "
+          f"({k7_ms / busy:.3f}); encoder {enc_ms:.4f} ms "
+          f"({enc_ms / busy:.3f}, {enc_n} launches); cross-attention "
+          f"{x_ms:.4f} ms ({x_ms / busy:.3f}, {x_n} launches)")
+    table = [(f"prefill {shape}", n_launch, wall, busy, 1 - busy / wall,
+              k7_ms / busy, x_ms / busy, peak)]
+    del logits, ek, ev, h, layers_
+    k7_simt, k7_tc = 0, n_tc
+
+    # (d) served through the default TransformerServeModel, float32 frames
+    eng = ServingEngine(full, params, n_slots=N_SLOTS,
+                        max_len=AUDIO_MAX_LEN, device=dev)
+    model = eng.model
+    del params                         # the engine holds its own copy
+    gc.collect()
+    torch.cuda.empty_cache()
+    enc_kv = eng.state.enc_kv
+    enc_ptrs = [t.data_ptr() for t in enc_kv]
+    check(all(t.dtype == torch.bfloat16 and tuple(t.shape) == (
+        n_dec, N_SLOTS, full.encoder_seq, full.n_heads, full.head_dim)
+        for t in enc_kv), f"[{name} serve] enc_kv malformed")
+    resets = watch_resets(model)
+    checked = model.reset_slot
+
+    def keeps_enc_kv(state, i, n_slots):
+        before = [t[:, i].clone() for t in state.enc_kv]
+        state = checked(state, i, n_slots)
+        check(all(torch.equal(a, t[:, i])
+                  for a, t in zip(before, state.enc_kv)),
+              f"[{name} serve] reset_slot changed slot {i}'s encoder K/V")
+        return state
+    model.reset_slot = keeps_enc_kv
+    rids, out, prompts, frames, n_enc_k7, n_k7, dt = audio_serve(
+        eng, rng, f"[{name} serve]", AUDIO_REQUESTS)
+    check(n_enc_k7 == n_k7 == n_enc * AUDIO_REQUESTS
+          == kfa.flash_attention.launches_simt,
+          f"[{name} serve] {n_k7} K7 launches ({n_enc_k7} in admissions' "
+          f"encodes, {kfa.flash_attention.launches_simt} simt), expected "
+          f"{n_enc} simt per admission and none in decode")
+    k7_simt += n_k7
+    check(len(resets) == AUDIO_REQUESTS,
+          f"[{name} serve] {len(resets)} slot resets checked, expected "
+          f"{AUDIO_REQUESTS}")
+    # request 0 by hand: slot 0's encoder K/V, then the decode loop
+    state = model.init_state(N_SLOTS, AUDIO_MAX_LEN)
+    f0 = torch.from_numpy(frames[0]).to(dev)[None]
+    own = tuple(torch.zeros_like(t) for t in enc_kv)
+    for dst, src in zip(own, model.encode(eng.params, f0)):
+        dst[:, 0].copy_(src[:, 0])
+    state = state._replace(enc_kv=own)
+    feed = torch.zeros((N_SLOTS, 1), dtype=torch.int64, device=dev)
+    alone: list[int] = []
+    for i in range(AUDIO_PROMPT + AUDIO_NEW - 1):
+        feed[0, 0] = prompts[0][i] if i < AUDIO_PROMPT else alone[-1]
+        logits, state = model.decode_step(eng.params, state, feed)
+        if i >= AUDIO_PROMPT - 1:
+            alone.append(int(torch.argmax(logits[0, -1])))
+    check(alone == out[rids[0]], f"[{name} serve] request 0's tokens "
+          f"{out[rids[0]]} differ from a hand-rolled decode loop {alone}")
+    st = latency_stats(eng.sched.finished)
+    n_tok = sum(len(x) for x in out.values())
+    steps = eng.steps_executed
+    print(f"[{name} serve] {AUDIO_REQUESTS} requests (prompt "
+          f"{AUDIO_PROMPT}, {AUDIO_NEW} new, float32 frames (1, "
+          f"{full.encoder_seq}, {full.d_model})) through {N_SLOTS} slots in "
+          f"{steps} steps: {n_enc} K7 simt launches per admission "
+          f"({n_enc_k7} in all), 0 in decode; {len(resets)} slot resets "
+          f"each read back zero in every cache tensor, the encoder K/V "
+          f"untouched; request 0 equals a hand-rolled decode loop; "
+          f"{n_tok / dt:.1f} tok/s, p50 {st['p50'] * 1e3:.1f} ms, p99 "
+          f"{st['p99'] * 1e3:.1f} ms, {dt * 1e3 / steps:.2f} ms per step")
+    zero_k7()
+    wall, busy, n_launch, rows = profile_call(
+        lambda: model.encode(eng.params, f0), 2,
+        f"admission encode, float32 frames (1, {full.encoder_seq})")
+    k7_ms = sum(r[0] for r in rows if "flash_simt" in r[2])
+    table.append((f"admission encode, float32 frames (1, {full.encoder_seq})",
+                  n_launch, wall, busy, 1 - busy / wall, k7_ms / busy, 0.0,
+                  float("nan")))
+    zero_k7()
+    wall, busy, n_launch, rows = profile_call(
+        lambda: model.decode_step(eng.params, state, feed), 3,
+        f"decode step at {N_SLOTS} slots")
+    check(kfa.flash_attention.launches == 0,
+          f"[{name} serve] the profiled decode step launched K7")
+    table.append((f"decode step, {N_SLOTS} slots", n_launch, wall, busy,
+                  1 - busy / wall, 0.0, float("nan"), float("nan")))
+    del state, logits, own
+
+    # hot-swap a second seed's weights mid-run, in place
+    ptrs = [x.data_ptr() for x in eng.params]
+
+    def swap_to():
+        return model.swap_arrays(tf.init_params(
+            full, torch.Generator(device=dev).manual_seed(SEED + 1), dev))
+    n_reset = len(resets)
+    rids2, out2, _, _, n_enc_k7, n_k7, _ = audio_serve(
+        eng, rng, f"[{name} swap]", AUDIO_REQUESTS, swap_to)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check([x.data_ptr() for x in eng.params] == ptrs,
+          f"[{name} swap] a weight tensor changed storage")
+    check([t.data_ptr() for t in eng.state.enc_kv] == enc_ptrs,
+          f"[{name} swap] the encoder K/V changed storage")
+    check(n_enc_k7 == n_k7 == n_enc * AUDIO_REQUESTS,
+          f"[{name} swap] {n_k7} K7 launches, {n_enc_k7} in encodes")
+    k7_simt += n_k7
+    print(f"[{name} swap] hot-swap after {AUDIO_SWAP_AT} steps: all "
+          f"{len(ptrs)} weight tensors and the 2 encoder K/V buffers kept "
+          f"their storage (data_ptr); {len(resets) - n_reset} more slot "
+          f"resets read back zero; {n_k7} K7 simt launches, all in "
+          f"admissions")
+
+    # (e) the served weights packed on the card, served at binary_weights
+    tree = tf.tree_unflatten(model._spec, eng.params)
+    t0 = time.perf_counter()
+    packed = packing.pack_params_for_serving(tree)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    frac = packing.packed_fraction(packed)
+    p_bytes = dense_tree_bytes(packed)
+    del eng, model, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    bw = full.with_(quant="binary_weights")
+    peng = ServingEngine(bw, packed, n_slots=N_SLOTS, max_len=AUDIO_MAX_LEN,
+                         device=dev)
+    del packed
+    rids3, out3, _, _, n_enc_k7, n_k7, dt = audio_serve(
+        peng, rng, f"[{name} packed]", AUDIO_REQUESTS)
+    check(n_enc_k7 == n_k7 == n_enc * AUDIO_REQUESTS,
+          f"[{name} packed] {n_k7} K7 launches, {n_enc_k7} in encodes")
+    k7_simt += n_k7
+    steps = peng.steps_executed
+    n_tok = sum(len(x) for x in out3.values())
+    print(f"[{name} packed] serve/packing.py on the card in {pack_s:.2f} s: "
+          f"packed_fraction {frac:.4f}, weights {p_bytes / 1e9:.3f} GB "
+          f"against {bf16_bytes / 1e9:.3f} GB in bf16 "
+          f"({bf16_bytes / p_bytes:.2f}x fewer bytes); served at quant "
+          f"binary_weights, {AUDIO_REQUESTS} requests through {N_SLOTS} "
+          f"slots in {steps} steps, {n_enc} K7 simt launches per admission, "
+          f"{n_tok / dt:.1f} tok/s")
+    state = peng.model.init_state(N_SLOTS, AUDIO_MAX_LEN)
+    state = state._replace(enc_kv=peng.state.enc_kv)
+    feed = torch.zeros((N_SLOTS, 1), dtype=torch.int64, device=dev)
+    zero_k7()
+    wall, busy, n_launch, _ = profile_call(
+        lambda: peng.model.decode_step(peng.params, state, feed), 3,
+        f"packed decode step at {N_SLOTS} slots")
+    check(kfa.flash_attention.launches == 0,
+          f"[{name} packed] the profiled decode step launched K7")
+    table.append((f"packed decode step, {N_SLOTS} slots", n_launch, wall,
+                  busy, 1 - busy / wall, 0.0, float("nan"), float("nan")))
+    del peng, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k7_simt, k7_tc, table
+
+
+def audio_phase(dev: torch.device) -> tuple[int, int]:
+    """Phase 7d: the audio family, whisper-medium at full width on
+    ``dev`` (``audio_cut``, then ``audio_full``). Returns the K7 launches
+    (simt, tc) of its main-path runs: the cut's float32 forwards, the
+    bf16 prefill, and every admission's encode."""
+    import gc
+
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[audio] device memory held on entry: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    rng = np.random.default_rng(SEED)
+    full = configs.get_config(AUDIO_ARCH)
+    simt = audio_cut(full, rng, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_simt, tc, table = audio_full(full, rng, dev)
+    simt += n_simt
+    print("[audio] call | launches | wall ms | kernel ms | idle | K7 share "
+          "| cross-attention share | peak GB")
+    for what, n, wall, busy, idle, k7, xattn, peak in table:
+        print(f"[audio] {what} | {n} | {wall:.4f} | {busy:.4f} | {idle:.3f} "
+              f"| {k7:.3f} | {xattn:.3f} | {peak:.2f}")
+    print(f"[audio] phase 7d wall {time.perf_counter() - t_phase:.1f} s; "
+          f"card: {smi('name,power.limit')}")
+    return simt, tc
+
+
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     """‖got − want‖ / ‖want‖ in float64 (0 where both are 0)."""
     got, want = got.double().cpu(), want.double().cpu()
@@ -3520,6 +4057,9 @@ def main() -> int:
         dense_phase())
     launches["flash_attention"] += moe_phase(torch.device("cuda"))
     launches["flash_attention"] += recurrent_phase(torch.device("cuda"))
+    simt, tc = audio_phase(torch.device("cuda"))
+    launches["flash_attention"] += simt
+    launches["flash_attention_tc"] += tc
     train_phase(torch.device("cuda"))
     kernels = []
     for name, (source, replaces) in SOURCES.items():

@@ -1,11 +1,11 @@
 """Model configurations of the port, and the registry that resolves
 ``launch/serve.py --arch <id>`` (counterpart of ``repro/configs``).
 
-``ARCH_MODULES`` holds the published architectures the port runs (the
-dense, moe, vlm, ssm and hybrid families of ``models/transformer.py``);
-``BINARY_LM_MODULES`` the XNOR LM (``models/xnor_lm.py``). The reference's
-audio architecture (whisper-medium) raises ``KeyError`` until its family
-is ported.
+``ARCH_MODULES`` holds every published architecture of the reference (the
+dense, moe, vlm, ssm, hybrid and audio families of
+``models/transformer.py``); ``BINARY_LM_MODULES`` the XNOR LM
+(``models/xnor_lm.py``). Each module exports ``CONFIG``, ``SMOKE_CONFIG``
+and ``SHAPES`` / ``SKIPPED_SHAPES`` (the assigned input-shape cells).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ ARCH_MODULES = {
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
     "yi-6b": "repro_torch.configs.yi_6b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
@@ -29,19 +30,12 @@ BINARY_LM_MODULES = {
     "xnor-lm-tiny": "repro_torch.configs.xnor_lm_tiny",
 }
 
-# the reference's architectures whose family (the audio stub) the port
-# does not have yet
-NOT_PORTED = ("whisper-medium",)
-
 
 def _mod(name: str):
     if name in ARCH_MODULES:
         return importlib.import_module(ARCH_MODULES[name])
     if name in BINARY_LM_MODULES:
         return importlib.import_module(BINARY_LM_MODULES[name])
-    if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet, see ROADMAP "
-                       f"queue 1")
     raise KeyError(f"unknown arch {name!r}; known: "
                    f"{sorted(ARCH_MODULES) + sorted(BINARY_LM_MODULES)}")
 
@@ -56,3 +50,10 @@ def get_config(name: str, *, smoke: bool = False, quant: str = "none"):
         cfg = cfg.with_(quant=quant)
     return cfg
 
+
+def get_shapes(name: str):
+    return list(_mod(name).SHAPES)
+
+
+def get_skipped_shapes(name: str) -> dict[str, str]:
+    return dict(getattr(_mod(name), "SKIPPED_SHAPES", {}))

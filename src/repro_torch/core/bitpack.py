@@ -87,6 +87,13 @@ def popcount32(words: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
+def xnor_popcount_words(a_words: torch.Tensor,
+                        w_words: torch.Tensor) -> torch.Tensor:
+    """Per-word XNOR + popcount: the agreeing bit positions of each word
+    of ``~(a ^ w)``, as int32 (..., n_words)."""
+    return popcount32(~(a_words ^ w_words)).to(torch.int32)
+
+
 def xnor_dot(a_words: torch.Tensor, w_words: torch.Tensor,
              k: int) -> torch.Tensor:
     """Paper eq. (5): agree-count among the first k bits (int32).
@@ -94,5 +101,19 @@ def xnor_dot(a_words: torch.Tensor, w_words: torch.Tensor,
     Pad bits are 0 in both operands, so each agrees; subtract n_pad.
     """
     n_pad = a_words.shape[-1] * PACK - k
-    agree = popcount32(~(a_words ^ w_words)).sum(dim=-1)
+    agree = xnor_popcount_words(a_words, w_words).sum(dim=-1)
     return (agree - n_pad).to(torch.int32)
+
+
+def pm1_from_xnor(y_l: torch.Tensor, k: int) -> torch.Tensor:
+    """Paper eq. (6): y_lo = 2·y_l − k, agree-counts back to ±1 sums."""
+    return 2 * y_l - k
+
+
+def packed_nbytes(shape: tuple[int, ...]) -> int:
+    """Device bytes of a packed tensor whose unpacked last axis is
+    ``shape[-1]``."""
+    n = 1
+    for d in shape[:-1]:
+        n *= d
+    return n * packed_len(shape[-1]) * 4

@@ -221,6 +221,11 @@ def binary_weight_matmul(a: torch.Tensor, w_words: torch.Tensor, *, k: int,
     return y.reshape(*lead, n)
 
 
+def pack_weights(w_pm1: torch.Tensor) -> torch.Tensor:
+    """(N, K) ±1 / real weights → (N, Kw) packed int32 (sign rule, eq. 4)."""
+    return bitpack.pack_pm1(w_pm1)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Softmax attention, head-major (B, Hq, S, hd) queries over (B, Hkv,

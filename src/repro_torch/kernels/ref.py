@@ -40,6 +40,16 @@ def xnor_matmul_ref(a_words: torch.Tensor, w_words: torch.Tensor,
     return ((dot + kp) / 2).to(torch.int32) - (kp - k)
 
 
+def xnor_matmul_pm1_ref(a_pm1: torch.Tensor,
+                        w_pm1: torch.Tensor) -> torch.Tensor:
+    """``xnor_matmul_ref``'s contract in the ±1 domain: (M, K) × (N, K)
+    → y_l = (K + a·wᵀ) / 2 as int32 (eqs. 5/6 inverse). The dot runs in
+    float64, exact for ±1 operands."""
+    k = a_pm1.shape[-1]
+    dot = a_pm1.to(torch.float64) @ w_pm1.to(torch.float64).T
+    return torch.div(k + dot, 2, rounding_mode="floor").to(torch.int32)
+
+
 def binary_weight_matmul_ref(a: torch.Tensor, w_words: torch.Tensor,
                              scale: torch.Tensor | None = None
                              ) -> torch.Tensor:

@@ -6,8 +6,10 @@ Two model families share the one slot engine (``serve/engine.py``):
 * the LM zoo (``--arch`` from ``configs.ARCH_MODULES``: the dense
   ``qwen3-8b``, ``yi-6b``, ``glm4-9b``, ``phi4-mini-3.8b``, the moe
   ``deepseek-v2-lite-16b``, ``deepseek-v2-236b``, the vlm
-  ``phi-3-vision-4.2b`` (served text only), the ssm ``rwkv6-3b`` and the
-  hybrid ``zamba2-7b``):
+  ``phi-3-vision-4.2b`` (served text only), the ssm ``rwkv6-3b``, the
+  hybrid ``zamba2-7b`` and the audio ``whisper-medium``, each of whose
+  requests brings float32 (encoder_seq, d_model) frame embeddings drawn
+  from the request stream's generator right after its prompt):
   ``models/transformer.py`` with random weights from ``--seed``
   (``init_params``), in the linear-layer mode ``--quant``, served by the
   engine's default ``TransformerServeModel``;
@@ -30,6 +32,8 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch zamba2-7b --smoke --swap     # also rwkv6-3b, phi-3-vision-4.2b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --arch whisper-medium --smoke --swap
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --arch xnor-lm-tiny --smoke --swap
 """
 from __future__ import annotations
@@ -49,7 +53,11 @@ from repro_torch.serve.engine import ServingEngine
 def _run_requests(eng, cfg, args, rng):
     for _ in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size, (args.prompt_len,)).tolist()
-        eng.submit(prompt, max_new_tokens=args.max_new)
+        fe = None
+        if getattr(cfg, "family", None) == "audio":
+            fe = rng.standard_normal(
+                (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        eng.submit(prompt, max_new_tokens=args.max_new, frontend=fe)
     t0 = time.perf_counter()
     out = eng.run()
     return out, time.perf_counter() - t0

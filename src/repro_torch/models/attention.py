@@ -19,7 +19,9 @@ windows, a KV cache and the one-token decode step.
   reference does on every backend; ``gqa_decode_step`` masks the keys
   that fell out of the window. No config of the zoo sets a window.
 
-``cross_attn_forward`` (the audio family) comes with that family.
+* ``cross_attn_forward`` (the audio family's decoder) attends every
+  query to the encoder's K/V in plain PyTorch, as the reference does: K7
+  takes equal query and key lengths, and here S differs from S_enc.
 """
 from __future__ import annotations
 
@@ -219,3 +221,25 @@ def gqa_decode_step(p: dict, cfg, x: torch.Tensor, cache: KVCache
                        _quant(cfg))
     length.add_(1)
     return out, cache
+
+
+def cross_attn_forward(p: dict, cfg, x: torch.Tensor, enc_k: torch.Tensor,
+                       enc_v: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of the whisper decoder: full, non-causal, on the
+    encoder's K/V. x: (B, S, D); enc_k / enc_v: (B, S_enc, H, hd).
+
+    As in the reference: float32 scores and softmax, the weights rounded
+    to ``enc_v``'s dtype before their product with V, which sums in
+    float32, and the result cast to x's dtype before ``wo``.
+    """
+    b, s, _ = x.shape
+    hd, h = cfg.head_dim, cfg.n_heads
+    f32 = torch.float32
+    q = layers.dense(p["wq"], x, _quant(cfg)).reshape(b, s, h, hd)
+    sc = torch.einsum("bqhd,bkhd->bqhk", q.to(f32),
+                      enc_k.to(f32)) * hd ** -0.5
+    w = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bqhk,bkhd->bqhd", w.to(enc_v.dtype).to(f32),
+                       enc_v.to(f32))
+    return layers.dense(p["wo"], out.reshape(b, s, h * hd).to(x.dtype),
+                        _quant(cfg))

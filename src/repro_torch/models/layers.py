@@ -12,9 +12,10 @@ The paper's technique enters through ``dense``:
 * quant="binary"          → activations and weights binarized, α-scaled;
 * quant="binary_weights"  → ±1 weights with a per-channel α, real
   activations;
-* a ``{"w_packed", "alpha"}`` dict (``dense_packed_from``) → packed ±1
-  weights unpacked in-graph. As in the reference, that product is a plain
-  matmul outside any kernel.
+* a ``{"w_packed", "alpha"}`` dict (``dense_packed_from``,
+  ``serve/packing.py``) → packed ±1 weights unpacked in-graph, whatever
+  the quant mode. As in the reference, that product is a plain matmul
+  outside any kernel.
 
 Init takes a ``torch.Generator``; its numbers differ from ``jax.random``'s,
 so parity runs hand both packages the same numpy parameters.
@@ -44,6 +45,20 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
     return {"w": w.to(dtype)}
 
 
+def dense_packed_init(generator: torch.Generator, d_in: int, d_out: int,
+                      dtype=torch.bfloat16, device="cpu") -> dict:
+    """Packed-layout init: random (out, in/32) int32 sign words and α of
+    ones (builds serving trees of the right shapes; ``dtype`` is unused,
+    as in the reference)."""
+    words = bitpack.packed_len(d_in)
+    w_packed = torch.randint(-2 ** 31, 2 ** 31 - 1, (d_out, words),
+                             generator=generator, dtype=torch.int32,
+                             device=generator.device).to(device)
+    return {"w_packed": w_packed,
+            "alpha": torch.ones((d_out,), dtype=torch.float32,
+                                device=device)}
+
+
 def dense_packed_from(w: torch.Tensor) -> dict:
     """Fold a trained (in, out) weight into the packed serving form:
     (out, in/32) int32 sign words and the per-output α = mean |w|."""
@@ -62,15 +77,20 @@ def dense(p: dict, x: torch.Tensor, quant: str = "none") -> torch.Tensor:
     A stacked weight (E, in, out) (``models/moe.py``'s experts) takes x of
     shape (E, M, in) and gives (E, M, out); each expert's α is the mean
     |w| over its own d_in, as the reference's ``vmap`` over E computes it.
+    A stacked packed artifact, (E, out, in/32) words with (E, out) α, is
+    applied the same way, expert by expert.
     """
     if "w_packed" in p:
         k = x.shape[-1]
         w_pm1 = bitpack.decode_pm1(bitpack.unpack_bits(p["w_packed"], k),
-                                   x.dtype)
+                                   torch.float32)
         # ±1 products are exact in float32: the reference's f32-accumulated
         # dot_general
-        y = torch.matmul(x.to(torch.float32), w_pm1.to(torch.float32).T)
-        return (y * p["alpha"].to(torch.float32)).to(x.dtype)
+        y = torch.matmul(x.to(torch.float32), w_pm1.transpose(-1, -2))
+        alpha = p["alpha"].to(torch.float32)
+        if alpha.dim() > 1:                       # (E, out) → (E, 1, out)
+            alpha = alpha.unsqueeze(-2)
+        return (y * alpha).to(x.dtype)
 
     w = p["w"]
     if quant == "none":

@@ -8,8 +8,9 @@ token order), each pair's rank within its expert decides whether it fits,
 and the pairs that fit are written into a ``(B, E, cap, D)`` buffer; a
 pair whose rank reaches ``cap`` is dropped. All E experts then run their
 SwiGLU on their capacity buffers (batched matrix products over the
-stacked ``(E, d_in, d_out)`` weights, outside any kernel, as the
-reference's ``vmap`` of ``layers.dense`` is), and the outputs are
+stacked ``(E, d_in, d_out)`` weights, or a packed serving artifact of
+``serve/packing.py`` per expert, outside any kernel, as the reference's
+``vmap`` of ``layers.dense`` is), and the outputs are
 combined gate-weighted in float32: each token gathers its k kept
 outputs and sums them in a fixed order. The
 router runs in float32 on a float32 weight whatever the model's dtype;
@@ -80,6 +81,11 @@ def dispatch(expert_idx: torch.Tensor, cap: int):
     return order, se, st, ok, slot
 
 
+def _wrap(w) -> dict:
+    """A raw (E, d_in, d_out) expert stack or a packed artifact (dict)."""
+    return w if isinstance(w, dict) else {"w": w}
+
+
 def moe_apply(p: dict, cfg, x: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) → (y in x's dtype, float32 aux loss). Routed top-k +
@@ -107,11 +113,10 @@ def moe_apply(p: dict, cfg, x: torch.Tensor
     buf.index_put_((rows, se, torch.where(ok, slot, cap)), x[rows, st])
 
     # every expert's SwiGLU on its (B·cap, D) rows, batched over E
-    w = p["experts"]
+    wi, wg, wo = (_wrap(p["experts"][k]) for k in ("wi", "wg", "wo"))
     hb = buf[:, :, :cap].transpose(0, 1).reshape(e, b * cap, d)
-    g = F.silu(layers.dense({"w": w["wg"]}, hb, quant))
-    ob = layers.dense({"w": w["wo"]}, g * layers.dense({"w": w["wi"]}, hb,
-                                                       quant), quant)
+    g = F.silu(layers.dense(wg, hb, quant))
+    ob = layers.dense(wo, g * layers.dense(wi, hb, quant), quant)
     out_buf = ob.reshape(e, b, cap, d).transpose(0, 1)          # (B,E,c,D)
 
     # combine: each (token, choice) pair reads its expert's output at its

@@ -8,21 +8,30 @@ moe         : [norm → MLA attention → norm → (dense MLP | shared + routed
 ssm (rwkv6) : [norm → time mix → norm → channel mix] × L
 hybrid      : chunks of ``attn_every`` Mamba-2 blocks, each chunk followed
 (zamba2)      by ONE weight-shared GQA + MLP block (Zamba2's shared block)
+audio       : a bidirectional encoder stack over the projected frame
+(whisper)     embeddings of a stub frontend, and a decoder stack of
+              [norm → GQA → norm → cross-attention → norm → GELU MLP] × L
 
 Layers are weight-stacked along a leading layer axis, as in the reference
 (``"stack0_dense_attn"``; moe: ``"stack0_dense_attn_mla"`` and
-``"stack1_moe"``; ``"stack0_rwkv"``, ``"stack0_mamba"``), and applied by a
+``"stack1_moe"``; ``"stack0_rwkv"``, ``"stack0_mamba"``; audio:
+``"stack0_dec_xattn"`` and the encoder's ``"enc"``), and applied by a
 Python loop over that axis where the reference scans. Every
-full-sequence attention goes through ``kernels/ops.py::flash_attention``
-(``attention.gqa_forward`` or ``mla.mla_forward``), so on the card
-``forward_train`` and ``prefill`` launch K7 once per attention layer, once
-per application of the hybrid's shared block, and never in the ssm
-family. Serving steps one token per slot through ``decode_step``, which
-updates the per-layer caches (K/V, MLA's latents, the recurrent states
-and the shared block's per-application K/V) in place.
+full-sequence self-attention goes through
+``kernels/ops.py::flash_attention`` (``attention.gqa_forward`` or
+``mla.mla_forward``), so on the card ``forward_train`` and ``prefill``
+launch K7 once per attention layer, once per application of the
+hybrid's shared block, never in the ssm family, and in the audio family
+once per encoder layer (``causal=False``) and once per decoder layer.
+The encoder runs in the dtype of the frames it is given, as the
+reference's does (``audio_proj`` is ``frames @ w.to(frames.dtype)``):
+float32 frames encode in float32 in a bf16 model. The decoder's
+cross-attention stays plain (``attention.cross_attn_forward``). Serving
+steps one token per slot through ``decode_step``, which updates the
+per-layer caches (K/V, MLA's latents, the recurrent states and the
+shared block's per-application K/V) in place.
 
-The audio family (whisper) raises ``NotImplementedError`` until it is
-ported (ROADMAP queue 1). ``loss_fn`` is not ported: on the card
+``loss_fn`` is not ported: on the card
 ``forward_train`` reaches K7, which has no backward (ROADMAP queue 1).
 The BCNN and the XNOR LM train (``train/bcnn_train.py``,
 ``models/xnor_lm.py::loss_fn``).
@@ -40,7 +49,7 @@ import torch
 
 from repro_torch.models import attention, layers, mamba2, mla, moe, rwkv6
 
-FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 def _dtype(cfg):
@@ -49,9 +58,7 @@ def _dtype(cfg):
 
 def _check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
-            f"port runs the families {FAMILIES}, see ROADMAP queue 1")
+        raise ValueError(cfg.family)
 
 
 # ---------------------------------------------------------------------------
@@ -79,15 +86,20 @@ def _block_init(generator: torch.Generator, cfg, layer_kind: str,
     if layer_kind == "mamba":
         return {"ln1": layers.norm_init(cfg.d_model, cfg.norm_type, device),
                 "mamba": mamba2.mamba_init(generator, cfg, dt, device)}
-    if layer_kind not in ("dense_attn", "moe"):
-        raise NotImplementedError(f"layer kind {layer_kind!r} is not ported "
-                                  f"yet, see ROADMAP queue 1")
+    if layer_kind not in ("dense_attn", "moe", "enc_attn", "dec_xattn"):
+        raise ValueError(layer_kind)
     p = _attn_block_init(generator, cfg, dt, device)
-    if layer_kind == "dense_attn":
-        p["mlp"] = layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
-                                   cfg.mlp_type, dt, device)
-    else:
+    if layer_kind == "moe":
         p["moe"] = moe.moe_init(generator, cfg, dt, device)
+        return p
+    if layer_kind == "dec_xattn":      # whisper decoder: self + cross + MLP
+        p["xattn"] = attention.attn_init(generator, cfg, dt, device)
+        p["ln3"] = layers.norm_init(cfg.d_model, cfg.norm_type, device)
+    # whisper's encoder and decoder blocks run a GELU MLP whatever
+    # cfg.mlp_type says, as the reference's do
+    mlp_type = cfg.mlp_type if layer_kind == "dense_attn" else "gelu"
+    p["mlp"] = layers.mlp_init(generator, cfg.d_model, cfg.d_ff, mlp_type,
+                               dt, device)
     return p
 
 
@@ -123,6 +135,8 @@ def _layer_plan(cfg) -> list[tuple[str, int]]:
         return [("rwkv", cfg.n_layers)]
     if cfg.family == "hybrid":
         return [("mamba", cfg.n_layers)]
+    if cfg.family == "audio":
+        return [("dec_xattn", cfg.n_layers)]
     return [("dense_attn", cfg.n_layers)]
 
 
@@ -168,6 +182,15 @@ def init_params(cfg, generator: torch.Generator, device="cpu") -> dict:
         # embeddings
         params["vision_proj"] = layers.dense_init(generator, cfg.d_model,
                                                   cfg.d_model, dt, device)
+    if cfg.family == "audio":
+        params["enc"] = _stack_init(generator, cfg, "enc_attn",
+                                    cfg.n_encoder_layers, device)
+        params["enc_norm"] = layers.norm_init(cfg.d_model, cfg.norm_type,
+                                              device)
+        # the stub conv frontend: one projection of precomputed frame
+        # embeddings
+        params["audio_proj"] = layers.dense_init(generator, cfg.d_model,
+                                                 cfg.d_model, dt, device)
     return params
 
 
@@ -258,8 +281,8 @@ def _layer(stack: dict, i: int) -> dict:
 
 
 def _layers(cfg, params: dict):
-    """(layer kind "dense_attn" | "moe" | "rwkv" | "mamba", that layer's
-    parameters) of every layer of the stack, in order."""
+    """(layer kind "dense_attn" | "moe" | "rwkv" | "mamba" | "dec_xattn",
+    that layer's parameters) of every layer of the stack, in order."""
     for i, (kind, count) in enumerate(_layer_plan(cfg)):
         for j in range(count):
             yield ("dense_attn" if kind == "dense_attn_mla" else kind,
@@ -273,16 +296,30 @@ def _recurrent_state(cfg, batch: int, device):
     return mod.init_state(cfg, batch, device=device)
 
 
+def _apply_dec_xattn(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+                     enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    h = layers.apply_norm(p["ln1"], x, cfg.norm_type)
+    x = x + attention.gqa_forward(p["attn"], cfg, h, positions)
+    h = layers.apply_norm(p["ln2"], x, cfg.norm_type)
+    x = x + attention.cross_attn_forward(p["xattn"], cfg, h, enc_k, enc_v)
+    h = layers.apply_norm(p["ln3"], x, cfg.norm_type)
+    return x + layers.mlp_apply(p["mlp"], h, "gelu", cfg.quant)
+
+
 def _decoder_stack(cfg, params: dict, x: torch.Tensor,
-                   positions: torch.Tensor):
+                   positions: torch.Tensor, enc_kv=None):
     """Run the decoder layer stack, one layer of the stacked tree at a
     time → (x, the MoE layers' summed aux loss, float32). The recurrent
     families start every layer from a zero state (a full sequence); the
-    hybrid applies the shared block after every ``attn_every`` layers."""
+    hybrid applies the shared block after every ``attn_every`` layers;
+    the audio family's layer i cross-attends to row i of ``enc_kv``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     every = _hybrid_chunks(cfg)[1] if cfg.family == "hybrid" else 0
     for i, (kind, p) in enumerate(_layers(cfg, params)):
-        if kind == "moe":
+        if kind == "dec_xattn":
+            x = _apply_dec_xattn(p, cfg, x, positions, enc_kv[0][i],
+                                 enc_kv[1][i])
+        elif kind == "moe":
             x, a = _apply_moe(p, cfg, x, positions)
             aux = aux + a
         elif kind == "rwkv":
@@ -299,10 +336,41 @@ def _decoder_stack(cfg, params: dict, x: torch.Tensor,
     return x, aux
 
 
+def _encode(cfg, params: dict, frames: torch.Tensor):
+    """The whisper encoder on stub frame embeddings (B, S_enc, D) → the
+    per-decoder-layer cross K/V, each (L, B, S_enc, H, hd), in the frames'
+    dtype (no cast: ``audio_proj`` runs in it, as in the reference). The
+    encoder's self-attention is K7 with ``causal=False``; K/V take quant
+    ``binary_weights`` where ``cfg.quant`` is ``"binary"``."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: the audio family needs a frontend "
+                         f"of (B, S_enc, d_model) frame embeddings")
+    x = layers.dense(params["audio_proj"], frames, "none")
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    enc = params["enc"]
+    for i in range(cfg.n_encoder_layers):
+        p = _layer(enc, i)
+        h = layers.apply_norm(p["ln1"], x, cfg.norm_type)
+        x = x + attention.gqa_forward(p["attn"], cfg, h, pos, causal=False)
+        h = layers.apply_norm(p["ln2"], x, cfg.norm_type)
+        x = x + layers.mlp_apply(p["mlp"], h, "gelu", cfg.quant)
+    x = layers.apply_norm(params["enc_norm"], x, cfg.norm_type)
+    b, se, _ = x.shape
+    hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    quant = "binary_weights" if cfg.quant == "binary" else cfg.quant
+    ks, vs = [], []
+    for _, p in _layers(cfg, params):
+        for w, out in ((p["xattn"]["wk"], ks), (p["xattn"]["wv"], vs)):
+            t = layers.dense(w, x, quant).reshape(b, se, kvh, hd)
+            out.append(attention._repeat_kv(t, h // kvh))
+    return torch.stack(ks), torch.stack(vs)
+
+
 class Batch(NamedTuple):
     tokens: torch.Tensor                 # (B, S) int
     targets: torch.Tensor                # (B, S) int
-    frontend: torch.Tensor | None = None  # (B, P, D) stub patch embeds (vlm)
+    frontend: torch.Tensor | None = None  # (B, P, D) stub patch (vlm) or
+                                          # frame (audio) embeddings
 
 
 def _head(params: dict) -> dict:
@@ -313,15 +381,18 @@ def forward_hidden(cfg, params: dict, batch: Batch):
     """Full-sequence causal forward → (final hidden states, aux_loss).
     The vlm family with a ``batch.frontend`` projects the patch
     embeddings, runs them ahead of the text and drops their positions
-    from the result."""
+    from the result; the audio family encodes ``batch.frontend``'s frames
+    and cross-attends to them."""
     _check_family(cfg)
     x = layers.embed_lookup(params["embed"], batch.tokens)
     vision = cfg.family == "vlm" and batch.frontend is not None
     if vision:
         pe = layers.dense(params["vision_proj"], batch.frontend, "none")
         x = torch.cat([pe.to(x.dtype), x], dim=1)
+    enc_kv = (_encode(cfg, params, batch.frontend)
+              if cfg.family == "audio" else None)
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
-    x, aux = _decoder_stack(cfg, params, x, pos)
+    x, aux = _decoder_stack(cfg, params, x, pos, enc_kv)
     if vision:
         x = x[:, batch.frontend.shape[1]:]               # text positions
     return layers.apply_norm(params["final_norm"], x, cfg.norm_type), aux
@@ -338,7 +409,8 @@ def prefill(cfg, params: dict, tokens: torch.Tensor,
     """Full-sequence prefill → (B, 1, vocab) last-position logits (the
     cache fill is elided, as in the reference; serving feeds prompts
     through ``decode_step``). ``frontend``: the vlm family's (B, P, D)
-    patch embeddings."""
+    patch embeddings or the audio family's (B, S_enc, D) frame
+    embeddings."""
     x, _ = forward_hidden(cfg, params, Batch(tokens=tokens, targets=tokens,
                                              frontend=frontend))
     return layers.logits_head(_head(params), x[:, -1:, :])
@@ -357,7 +429,8 @@ class ServeState(NamedTuple):
                                 # (hybrid) {"ssm": mamba2.MambaState (L, B,
                                 # …), "shared_kv": KVCache with one cache per
                                 # shared-block application, (n_chunks, B, …)}
-    enc_kv: Any                 # cross K/V of the audio family (None here)
+    enc_kv: Any                 # the audio family's cross (K, V), each
+                                # (L, B, S_enc, H, hd), or None
     length: torch.Tensor        # scalar int64 — steps taken
 
 
@@ -396,16 +469,22 @@ def _recurrent_step(apply, p: dict, cfg, x: torch.Tensor, states, i: int):
     return x
 
 
-def decode_step(cfg, params: dict, state: ServeState, tokens: torch.Tensor):
+def decode_step(cfg, params: dict, state: ServeState, tokens: torch.Tensor,
+                frontend: torch.Tensor | None = None):
     """One decode step with a filled cache: (B, 1) tokens → ((B, 1, vocab)
     logits, state). Updates every layer's cache or recurrent state and the
-    step count in place and returns the same state. The recurrent families
+    step count in place and returns the state. The recurrent families
     take their token-scan forms (a one-token forward through the stack);
     the hybrid's shared block attends to its own cache at each
     application. The moe family's MoE layers route every step's token
-    through all experts' capacity buffers, as the reference does."""
+    through all experts' capacity buffers, as the reference does. The
+    audio family cross-attends to ``state.enc_kv``; where that is None it
+    encodes ``frontend`` first and returns a state that holds the
+    result."""
     _check_family(cfg)
     x = layers.embed_lookup(params["embed"], tokens)
+    if cfg.family == "audio" and state.enc_kv is None:
+        state = state._replace(enc_kv=_encode(cfg, params, frontend))
     c = state.caches
     if cfg.family == "ssm":
         for i, (_, p) in enumerate(_layers(cfg, params)):
@@ -435,6 +514,12 @@ def decode_step(cfg, params: dict, state: ServeState, tokens: torch.Tensor):
             h = layers.apply_norm(p["ln2"], x, cfg.norm_type)
             if kind == "moe":
                 x = x + moe.moe_apply(p["moe"], cfg, h)[0]
+            elif kind == "dec_xattn":
+                x = x + attention.cross_attn_forward(
+                    p["xattn"], cfg, h, state.enc_kv[0][i],
+                    state.enc_kv[1][i])
+                h = layers.apply_norm(p["ln3"], x, cfg.norm_type)
+                x = x + layers.mlp_apply(p["mlp"], h, "gelu", cfg.quant)
             else:
                 x = x + layers.mlp_apply(p["mlp"], h, cfg.mlp_type,
                                          cfg.quant)

@@ -11,16 +11,22 @@ joins a slot the moment one frees up instead of waiting for a batch:
 * greedy decoding, EOS / max-token / cache-end eviction, FIFO admission
   (``serve/slots.py``);
 * every step has the same shapes whatever the occupancy: the step's
-  tokens are always an ``(n_slots, 1)`` tensor on the engine's device.
+  tokens are always an ``(n_slots, 1)`` tensor on the engine's device;
+* the audio family (whisper) keeps a per-slot encoder K/V pair in
+  ``state.enc_kv``, each (L, n_slots, S_enc, H, hd) in the config's
+  dtype: admission encodes a request's ``frontend`` frames and copies
+  them into its slot. As in the reference, ``reset_slot`` zeroes the
+  caches only, so a request without a frontend cross-attends to what the
+  slot's last request left there.
 
 The model behind the step is an adapter with ``init_state`` /
 ``decode_step`` / ``reset_slot`` and a ``device``. The default,
 ``TransformerServeModel``, serves the LM zoo of ``models/transformer.py``
-(dense, moe, vlm, ssm and hybrid; a vlm request is text only, as in the
-reference, whose engine encodes a frontend for audio alone);
-``models/xnor_lm.py::XnorLMServeModel`` plugs in the packed XNOR LM (the
-reference's audio path comes with that family). The reference jit-compiles the step once and donates the state;
-here the step runs eagerly and the adapter updates the state in place.
+(every family; a vlm request is text only, as in the reference, whose
+engine encodes a frontend for audio alone);
+``models/xnor_lm.py::XnorLMServeModel`` plugs in the packed XNOR LM. The
+reference jit-compiles the step once and donates the state; here the
+step runs eagerly and the adapter updates the state in place.
 ``swap_params`` copies new weights into the live tensors, the counterpart
 of the reference's swap without a recompile: every weight keeps its
 storage.
@@ -49,6 +55,7 @@ class TransformerServeModel:
 
     def __init__(self, cfg, params: dict, *, device="cuda"):
         self.cfg = cfg
+        self.family = cfg.family
         self.device = resolve_device(device)
         self._spec = _spec(params)      # structure, shapes, dtypes only
         # a hot-swap overwrites these in place: copies, never the caller's
@@ -63,6 +70,12 @@ class TransformerServeModel:
         return transformer.decode_step(
             self.cfg, transformer.tree_unflatten(self._spec, arrays), state,
             tokens)
+
+    def encode(self, arrays, frames: torch.Tensor):
+        """The audio family's encoder: (B, S_enc, D) frames → cross (K, V),
+        each (L, B, S_enc, H, hd), in the frames' dtype."""
+        return transformer._encode(
+            self.cfg, transformer.tree_unflatten(self._spec, arrays), frames)
 
     def reset_slot(self, state, i: int, n_slots: int):
         """Zero slot ``i`` of every tensor of the caches, in place (each
@@ -125,22 +138,34 @@ class ServingEngine:
         self.model = model
         self.device = model.device
         self.state = model.init_state(n_slots, max_len)
+        if getattr(model, "family", None) == "audio":
+            # per-slot encoder cross K/V, filled at admission, outside the
+            # caches that reset_slot zeroes
+            dt = transformer._dtype(cfg)
+            shape = (cfg.n_layers, n_slots, cfg.encoder_seq, cfg.n_heads,
+                     cfg.head_dim)
+            self.state = self.state._replace(enc_kv=tuple(
+                torch.zeros(shape, dtype=dt, device=self.device)
+                for _ in range(2)))
         self.sched = SlotScheduler(n_slots)
         self._steps = 0
         self._pos = np.zeros((n_slots,), np.int64)       # tokens consumed
         self._pending: list[deque] = [deque() for _ in range(n_slots)]
 
     # ------------------------------------------------------------------ api
-    def submit(self, prompt_tokens: list[int],
-               max_new_tokens: int = 32) -> int:
-        """Enqueue a prompt; returns the request id."""
+    def submit(self, prompt_tokens: list[int], max_new_tokens: int = 32,
+               frontend=None) -> int:
+        """Enqueue a prompt; returns the request id. ``frontend``: the
+        audio family's (S_enc, D) frame embeddings (numpy or a tensor),
+        encoded at admission in their own dtype."""
         if len(prompt_tokens) >= self.max_len - 1:
             # the KV cache holds max_len positions and generation needs at
             # least one; a longer prompt would run past the cache
             raise ValueError(
                 f"prompt length {len(prompt_tokens)} must be < max_len-1 "
                 f"({self.max_len - 1}); raise max_len or truncate the prompt")
-        return self.sched.submit(list(prompt_tokens), max_new=max_new_tokens)
+        return self.sched.submit(list(prompt_tokens),
+                                 max_new=max_new_tokens, frontend=frontend)
 
     def run(self, max_steps: int = 10_000) -> dict[int, list[int]]:
         """Step until every submitted request completes, or for at most
@@ -187,6 +212,11 @@ class ServingEngine:
             self._pending[i] = deque(req.payload)
             self._pos[i] = 0
             self.state = self.model.reset_slot(self.state, i, self.n_slots)
+            if req.frontend is not None:
+                frames = torch.as_tensor(req.frontend).to(self.device)[None]
+                for dst, src in zip(self.state.enc_kv,
+                                    self.model.encode(self.params, frames)):
+                    dst[:, i].copy_(src[:, 0])
         return self.sched.n_occupied > 0
 
     def _step(self, tokens: torch.Tensor) -> np.ndarray:

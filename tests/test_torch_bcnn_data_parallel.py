@@ -38,6 +38,18 @@ from repro_torch.core import bcnn
 from repro_torch.parallel.bcnn_data_parallel import make_sharded_forward
 from repro_torch.serve.bcnn_engine import BCNNEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread, module fixtures included: the test workers
+    share the CPUs, and torch's default of one thread per CPU each
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 
 

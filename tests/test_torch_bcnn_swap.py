@@ -36,6 +36,18 @@ from repro_torch.parallel import bcnn_data_parallel as bdp
 from repro_torch.parallel import bcnn_pipeline as bp
 from repro_torch.serve.bcnn_engine import BCNNEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread, module fixtures included: the test workers
+    share the CPUs, and torch's default of one thread per CPU each
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N_SLOTS = 3
 
 # the reference's engine variants (tests/test_bcnn_swap.py)

@@ -62,7 +62,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.parallel.bcnn_data_parallel",
             "repro_torch.models.rwkv6", "repro_torch.models.mamba2",
             "repro_torch.configs.rwkv6_3b", "repro_torch.configs.zamba2_7b",
-            "repro_torch.configs.phi3_vision_4_2b"} <= set(modules)
+            "repro_torch.configs.phi3_vision_4_2b",
+            "repro_torch.configs.whisper_medium",
+            "repro_torch.serve.packing"} <= set(modules)
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {modules!r}:\n"

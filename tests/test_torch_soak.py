@@ -37,6 +37,18 @@ import torch
 from repro_torch.core import bcnn
 from repro_torch.serve import AutoscaleConfig, Router, RouterOverload
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread, module fixtures included: the test workers
+    share the CPUs, and torch's default of one thread per CPU each
+    oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 psutil = pytest.importorskip(
     "psutil", reason="RSS discipline needs psutil")
 

@@ -95,31 +95,39 @@ def test_configs_match_reference(arch):
     assert configs.get_config(arch, quant="binary").quant == "binary"
 
 
-@pytest.mark.parametrize("name", configs.NOT_PORTED)
-def test_unported_archs_raise(name):
-    assert name in jconfigs.ARCH_NAMES
-    with pytest.raises(KeyError, match="not ported yet"):
-        configs.get_config(name)
+@pytest.mark.parametrize("name", jconfigs.ARCH_NAMES)
+def test_every_reference_arch_resolves(name):
+    assert configs.get_config(name).name == jconfigs.get_config(name).name
+    assert ([dataclasses.asdict(s) for s in configs.get_shapes(name)]
+            == [dataclasses.asdict(s) for s in jconfigs.get_shapes(name)])
+    assert (configs.get_skipped_shapes(name)
+            == jconfigs.get_skipped_shapes(name))
 
 
 def test_registry_covers_the_reference_table():
-    assert (set(configs.ARCH_NAMES) | set(configs.NOT_PORTED)
-            == set(jconfigs.ARCH_NAMES))
+    assert set(configs.ARCH_NAMES) == set(jconfigs.ARCH_NAMES)
     assert set(configs.BINARY_LM_MODULES) == set(jconfigs.BINARY_LM_NAMES)
+    assert not hasattr(configs, "NOT_PORTED")
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_config("whisper-large")
 
 
-@pytest.mark.parametrize("family", ["audio"])
-def test_unported_families_raise(family):
+@pytest.mark.parametrize("family", ["speech"])
+def test_unknown_families_raise(family):
+    """An unknown family raises ValueError(family), as the reference's
+    ``_layer_plan`` does."""
     cfg = configs.get_config("qwen3-8b", smoke=True).with_(family=family)
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    with pytest.raises(ValueError, match=family):
         tf.init_params(cfg, g)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    with pytest.raises(ValueError, match=family):
         tf.init_serve_state(cfg, 1, 8)
     params = models("qwen3-8b")[3]
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    with pytest.raises(ValueError, match=family):
         tf.prefill(cfg, params, toks)
+    with pytest.raises(ValueError):
+        jt.init_params(cfg, jax.random.PRNGKey(0))
 
 
 def test_sliding_window_raises():

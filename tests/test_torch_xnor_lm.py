@@ -103,10 +103,11 @@ def test_config_checks_and_param_count_match_reference():
     assert (tiny.vocab_size, tiny.d_model, tiny.n_layers, tiny.n_heads,
             tiny.d_ff, tiny.max_len) == (256, 128, 4, 4, 256, 256)
     assert configs.get_config("xnor-lm-tiny", smoke=True).d_ff == 96
-    # the dense LM zoo is registered beside it; unported families raise
+    # the LM zoo, every family of it, is registered beside it
     assert configs.get_config("qwen3-8b").family == "dense"
-    with pytest.raises(KeyError, match="not ported yet"):
-        configs.get_config("whisper-medium")
+    assert configs.get_config("whisper-medium").family == "audio"
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_config("whisper-tiny")
 
 
 def test_binarize_matches_reference():

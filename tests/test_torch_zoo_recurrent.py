@@ -114,12 +114,13 @@ def test_config_matches_reference(arch):
         arch).param_count()
 
 
-def test_only_whisper_is_not_ported():
-    assert configs.NOT_PORTED == ("whisper-medium",)
-    assert set(configs.ARCH_NAMES) | set(configs.NOT_PORTED) == set(
-        jconfigs.ARCH_NAMES)
-    with pytest.raises(KeyError, match="not ported"):
-        configs.get_config("whisper-medium")
+def test_every_reference_arch_is_ported():
+    assert set(configs.ARCH_NAMES) == set(jconfigs.ARCH_NAMES)
+    for arch in jconfigs.ARCH_NAMES:
+        assert configs.get_config(arch).family in tf.FAMILIES
+    assert configs.get_config("whisper-medium").family == "audio"
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_config("whisper-tiny")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
