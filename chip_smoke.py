@@ -178,6 +178,31 @@ Phases, each fatal on failure (nothing is caught):
    in modes "bw" (K6), "xnor" on "vpu" (K1) and "mxu" (K2). The trainer
    runs under ``exact_numerics`` (TF32 off, deterministic algorithms;
    ``CUBLAS_WORKSPACE_CONFIG`` is set before the first cuBLAS call).
+8b. LM training of the zoo (``train/train_loop.py``, ``launch/train.py``):
+   (a) one ``make_train_step`` step on the card and on the CPU from the
+   same weights (TF32 off) for Qwen3-8B cut to 2 layers at full width
+   in float32 at ``LM_STEP_TOKENS`` and for the float32 cuts of phases
+   7b-7d (``LM_STEP_CUTS``; the moe cut with both routers recorded and
+   every token routed alike): loss at rtol 1e-5, every gradient leaf,
+   both Adam moments and every updated weight within relative L2 1e-4
+   (a weight whose two gradients both lie below ``TRAIN_ADAM_FLAT`` held
+   to 2·lr), 0 K7 launches inside each step; (b) Qwen3-8B at full width
+   cut to ``LM_TRAIN_LAYERS`` layers, bf16, remat, trained
+   ``LM_TRAIN_STEPS`` steps at ``LM_TRAIN_TOKENS`` under
+   ``exact_numerics`` with the loss falling, and again crashed after
+   step ``LM_TRAIN_CRASH_AT`` and resumed from its checkpoint (every
+   leaf of the ``TrainState`` and every overlapping loss bitwise equal),
+   the step timed between CUDA events (tokens/s, peak memory) and
+   profiled, the checkpoint's bytes and save / restore times; (c) its
+   trained weights' ``forward_train`` under ``torch.no_grad()`` through
+   K7 tc (one launch a layer) against the blockwise path under autograd
+   (no launch), relative L2 at most ``LM_TRAIN_K7_GAP``; (d) the cut at
+   quant binary_weights trained ``LM_TRAIN_BW_STEPS`` steps with the
+   loss falling, packed (``serve/packing.py``), its packed ``prefill``
+   against the latent tree's STE ``prefill`` (K7 tc in both) and served
+   at 4 slots, request 0 equal to a hand-rolled decode loop on the packed
+   tree; (e) ``python -m repro_torch.launch.train --smoke`` on the card
+   crashed after step 2 and ``--resume``d to step 4.
 
 Phase 2 also holds K7 against its plain version at the dense LM's
 attention shape (B, Hq, Hkv, hd) = (1, 32, 8, 128), causal, S in {128,
@@ -484,6 +509,37 @@ AUDIO_PROMPT = 16
 AUDIO_NEW = 16
 AUDIO_MAX_LEN = 40               # prompt 16 + 16 new tokens fit
 AUDIO_SWAP_AT = 12               # engine steps before the mid-run swap
+# LM training (phase 8b). (a) One make_train_step step card vs CPU from
+# the same weights, TF32 off: Qwen3-8B cut to 2 layers at full width in
+# float32 at LM_STEP_TOKENS, and the float32 cuts of phases 7b-7d (layers,
+# (batch, text tokens)); the loss at rtol 1e-5 and every gradient leaf,
+# Adam moment and updated weight within relative L2 1e-4 (float32 sums in
+# another order). (b) Qwen3-8B at full width cut to 4 layers, bf16, remat
+# on, LM_TRAIN_STEPS steps of (batch, seq) SyntheticLM at lr 3e-4 under
+# exact_numerics, straight and crashed after LM_TRAIN_CRASH_AT and
+# resumed (checkpoints every LM_TRAIN_CKPT_EVERY, the newest kept);
+# (c) its trained weights through K7 tc within relative L2
+# LM_TRAIN_K7_GAP of the blockwise path (phase 7's bf16 bar); (d) the cut
+# at quant binary_weights trains LM_TRAIN_BW_STEPS steps, is packed and
+# served; (e) the CLI on the smoke config.
+LM_STEP_TOKENS = (2, 128)
+LM_STEP_CUTS = (("deepseek-v2-lite-16b", 2, (2, 128)),
+                ("phi-3-vision-4.2b", 2, (1, 64)),
+                ("rwkv6-3b", 2, (2, 128)),
+                ("zamba2-7b", 12, (2, 64)),
+                ("whisper-medium", 2, (2, 128)))
+LM_STEP_TOL = {"loss": 1e-5, "leaf": 1e-4}
+LM_TRAIN_LAYERS = 4
+LM_TRAIN_TOKENS = (8, 1024)
+LM_TRAIN_LR = 3e-4
+LM_TRAIN_STEPS = 20
+LM_TRAIN_CKPT_EVERY = 10
+LM_TRAIN_CRASH_AT = 10
+LM_TRAIN_BW_STEPS = 10
+LM_TRAIN_K7_TOKENS = (2, 1024)
+LM_TRAIN_K7_GAP = 0.02
+LM_PACKED_PROMPT = (1, 128)
+LM_TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_lm_train")
 # training (phase 8): the default recipe, the crash step, the card-vs-CPU
 # step's tolerances, and where checkpoints and the artifact go (inside
 # the checkout, gitignored, removed at the end)
@@ -2228,9 +2284,8 @@ def lm_phase() -> int:
 
 
 def dense_tree_bytes(params) -> int:
-    from repro_torch.models import transformer
-    return sum(x.numel() * x.element_size()
-               for x in transformer.tree_leaves(params))
+    from repro_torch.train.tree import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(params))
 
 
 def profile_call(fn, n: int, what: str):
@@ -3720,8 +3775,9 @@ def audio_phase(dev: torch.device) -> tuple[int, int]:
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
-    """‖got − want‖ / ‖want‖ in float64 (0 where both are 0)."""
-    got, want = got.double().cpu(), want.double().cpu()
+    """‖got − want‖ / ‖want‖ in float64 on ``got``'s device (0 where both
+    are 0)."""
+    got, want = got.double(), want.to(got.device).double()
     den = float(want.norm())
     num = float((got - want).norm())
     return num / den if den else num
@@ -4028,6 +4084,421 @@ def train_phase(dev: torch.device) -> None:
     print(f"card: {card}")
 
 
+def lm_step_check(cfg, tokens, dev, tag: str) -> None:
+    """Phase 8b (a): one ``make_train_step`` step of ``cfg`` from the same
+    weights on the CPU and on the card ``dev``, on ``SyntheticLM``'s first
+    batch of ``tokens`` (with the family's stub frontend): the loss at
+    ``LM_STEP_TOL["loss"]``, every gradient leaf, both Adam moments and
+    every updated weight within relative L2 ``LM_STEP_TOL["leaf"]``; no
+    K7 launch in the card's step (counters zeroed just before and read
+    just after). The moe cut records both routers: every token must take
+    the same experts on both devices (``route_keep`` at
+    ``MOE_ROUTE_MARGIN``, no position left out)."""
+    import contextlib
+    import gc
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch.train import frontend_shape
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_loop, tree
+
+    params = tf.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    n_par = sum(t.numel() for t in tree.tree_leaves(params))
+    batch = SyntheticLM(cfg.vocab_size, tokens[1], tokens[0], seed=SEED,
+                        frontend=frontend_shape(cfg)).batch(0)
+    adamw = opt_lib.AdamW(lr=LM_TRAIN_LR)
+    step = train_loop.make_train_step(cfg, adamw, keep_grads=True)
+    routes = RouteLog if cfg.family == "moe" else contextlib.nullcontext
+    t0 = time.perf_counter()
+    cpu = tree.tree_map(lambda t: t.cpu(), params)
+    with routes() as cpu_routes:
+        want, want_m = step(train_loop.TrainState(cpu, adamw.init(cpu),
+                                                  None), batch)
+    del cpu
+    gc.collect()
+    cpu_s = time.perf_counter() - t0
+    zero_k7()
+    with routes() as card_routes:
+        got, got_m = step(train_loop.TrainState(params, adamw.init(params),
+                                                None), batch)
+        torch.cuda.synchronize()
+    n_k7 = kfa.flash_attention.launches
+    check(n_k7 == 0, f"{tag} {n_k7} K7 launches inside a train step")
+    del params
+    if cfg.family == "moe":
+        keep, gaps = route_keep(card_routes, cpu_routes, cfg.top_k,
+                                MOE_ROUTE_MARGIN, tag)
+        check(bool(keep.all()), f"{tag} routing differs at near-ties "
+              f"{gaps}: the step's gradients are not comparable")
+    loss, want_loss = float(got_m["loss"]), float(want_m["loss"])
+    gap = abs(loss - want_loss) / abs(want_loss)
+    check(np.isfinite(loss) and gap <= LM_STEP_TOL["loss"],
+          f"{tag} loss card {loss!r} vs CPU {want_loss!r}")
+    worst, flat = {}, 0
+    # the CPU's results move to the card leaf by leaf; the gaps are
+    # computed there in float64
+    pairs = [("grads", got_m["grads"], want_m["grads"]),
+             ("weights", got.params, want.params),
+             ("moments", {"m": got.opt.m, "v": got.opt.v},
+              {"m": want.opt.m, "v": want.opt.v})]
+    grads = {k: (g_cpu, g_card) for (k, g_cpu), g_card in zip(
+        tree.leaves_with_path(want_m["grads"]),
+        tree.tree_leaves(got_m["grads"]))}
+    for kind, a_tree, b_tree in pairs:
+        for (key, a), b in zip(tree.leaves_with_path(a_tree),
+                               tree.tree_leaves(b_tree)):
+            b = b.to(dev)
+            if kind == "weights":
+                # Adam's first step moves a weight by lr·g / (|g| + eps):
+                # where both gradients lie below TRAIN_ADAM_FLAT that ratio
+                # is decided by rounding (zero-initialised biases show it);
+                # such elements may differ by at most 2·lr
+                g_cpu, g_card = grads[key]
+                free = torch.maximum(g_cpu.to(dev).abs(), g_card.abs()) < (
+                    TRAIN_ADAM_FLAT)
+                diff = (a - b).abs()
+                check(float(diff.masked_fill(~free, 0).max())
+                      <= 2 * LM_TRAIN_LR + TRAIN_SAME,
+                      f"{tag} weights {key}: a flat element moved by more "
+                      f"than 2·lr")
+                flat += int((free & (diff > TRAIN_SAME)).sum())
+                a, b = a.masked_fill(free, 0), b.masked_fill(free, 0)
+            gap_l = rel_l2(a, b)
+            check(gap_l <= LM_STEP_TOL["leaf"], f"{tag} {kind} {key}: "
+                  f"relative L2 {gap_l:.3g}")
+            if gap_l >= worst.get(kind, (0.0, ""))[0]:
+                worst[kind] = (gap_l, key)
+    check(int(got.opt.step) == int(want.opt.step) == 1,
+          f"{tag} Adam step counter")
+    print(f"{tag} one train step, {n_par:,} parameters, tokens {tokens}, "
+          f"card == CPU: loss {loss:.6f} vs {want_loss:.6f} (relative "
+          f"{gap:.2g}, limit {LM_STEP_TOL['loss']}); worst relative L2 "
+          + ", ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in worst.items())
+          + f" (limit {LM_STEP_TOL['leaf']}; {flat} weight elements "
+          f"differ by more than {TRAIN_SAME} where both gradients lie below "
+          f"{TRAIN_ADAM_FLAT}, held to 2·lr); 0 K7 launches in the step; "
+          f"CPU step {cpu_s:.1f} s")
+    del got, want, got_m, want_m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_train_run(cut, dev):
+    """Phase 8b (b): ``cut`` trained ``LM_TRAIN_STEPS`` steps under
+    ``exact_numerics`` straight, then crashed after ``LM_TRAIN_CRASH_AT``
+    and resumed from its checkpoint; every leaf of the final
+    ``TrainState`` and every overlapping loss bitwise equal, the loss
+    falling, no K7 launch; the step timed, profiled and its peak memory
+    read; the checkpoint's bytes and save / restore times. Returns the
+    straight run's final state."""
+    import gc
+    import shutil
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import train as train_launch
+    from repro_torch.train import bcnn_train as bt
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_loop, tree
+
+    b, s = LM_TRAIN_TOKENS
+    tag = f"[lm train {LM_TRAIN_LAYERS}L]"
+    kw = dict(steps=LM_TRAIN_STEPS, batch=b, seq=s, lr=LM_TRAIN_LR,
+              seed=SEED, device=dev, exact=True, log_every=5)
+    zero_k7()
+    straight, info = train_launch.train(cut, **kw)
+    torch.cuda.synchronize()
+    check(kfa.flash_attention.launches == 0, f"{tag} the train loop "
+          f"launched K7")
+    losses = info["losses"]
+    check(all(np.isfinite(v) for v in losses.values()), f"{tag} a loss is "
+          f"not finite")
+    first = float(np.mean([losses[i] for i in range(5)]))
+    last = float(np.mean([losses[i] for i in range(LM_TRAIN_STEPS - 5,
+                                                   LM_TRAIN_STEPS)]))
+    check(last < first, f"{tag} loss did not fall: mean of the first 5 "
+          f"steps {first:.4f}, of the last 5 {last:.4f}")
+    n_par = sum(t.numel() for t in tree.tree_leaves(straight.params))
+    print(f"{tag} {cut.name} at full width, {cut.n_layers} layers, "
+          f"{n_par:,} parameters, bf16, remat, tokens {LM_TRAIN_TOKENS}, "
+          f"lr {LM_TRAIN_LR}: loss {losses[0]:.4f} -> "
+          f"{losses[LM_TRAIN_STEPS - 1]:.4f} (mean of the first 5 steps "
+          f"{first:.4f}, of the last 5 {last:.4f}); {info['seconds']:.1f} s "
+          f"of host wall for {LM_TRAIN_STEPS} steps")
+
+    # the step: device time between CUDA events, peak memory, profile
+    adamw = opt_lib.AdamW(lr=LM_TRAIN_LR)
+    step_fn = train_loop.make_train_step(cut, adamw)
+    batch = SyntheticLM(cut.vocab_size, s, b, seed=SEED).batch(0)
+    batch = type(batch)(*(None if a is None else a.to(dev) for a in batch))
+    card = smi("name,power.limit")
+    with bt.exact_numerics():
+        step_ms = time_ms(lambda: step_fn(straight, batch), reps=3, warmup=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn(straight, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{tag} step at {LM_TRAIN_TOKENS} ({card}): {step_ms:.2f} ms "
+              f"between CUDA events, {b * s / step_ms * 1e3:,.0f} tokens/s, "
+              f"peak memory {peak / 1e9:.2f} GB")
+        profile_call(lambda: step_fn(straight, batch), 1,
+                     f"train step at {LM_TRAIN_TOKENS}")
+    del batch
+    # the straight run's state waits on the host for the comparison
+    straight = tree.tree_map(lambda t: None if t is None else t.cpu(),
+                             straight)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # crashed after LM_TRAIN_CRASH_AT, resumed from its checkpoint
+    shutil.rmtree(LM_TRAIN_DIR, ignore_errors=True)
+    ck_dir = os.path.join(LM_TRAIN_DIR, "ck")
+    saves, restores = [], []
+    real_save, real_restore = ckpt.save, ckpt.restore
+
+    def timed_save(*a, **k):
+        t0 = time.perf_counter()
+        out = real_save(*a, **k)
+        saves.append((time.perf_counter() - t0, sum(
+            os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))))
+        return out
+
+    def timed_restore(*a, **k):
+        t0 = time.perf_counter()
+        out = real_restore(*a, **k)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+        return out
+    ckpt.save, ckpt.restore = timed_save, timed_restore
+    try:
+        try:
+            train_launch.train(cut, **kw, ckpt_dir=ck_dir, keep=1,
+                               ckpt_every=LM_TRAIN_CKPT_EVERY,
+                               crash_at=LM_TRAIN_CRASH_AT, verbose=False)
+            check(False, f"{tag} the crash run did not crash")
+        except bt.SimulatedCrash:
+            pass
+        gc.collect()
+        torch.cuda.empty_cache()
+        resume_at = ckpt.latest_step(ck_dir)
+        check(resume_at == LM_TRAIN_CRASH_AT, f"{tag} latest checkpoint "
+              f"{resume_at}")
+        # the resumed run writes no checkpoint of its own (a 20 GB write)
+        resumed, rinfo = train_launch.train(
+            cut, **kw, ckpt_dir=ck_dir, keep=1,
+            ckpt_every=LM_TRAIN_STEPS + 1, resume=True, verbose=False)
+    finally:
+        ckpt.save, ckpt.restore = real_save, real_restore
+    check(rinfo["start_step"] == resume_at, f"{tag} resumed elsewhere")
+    pairs = list(zip(tree.leaves_with_path(straight),
+                     tree.tree_leaves(resumed)))
+    bad = [k for (k, a), r in pairs
+           if not (a is None and r is None or torch.equal(a, r.cpu()))]
+    check(not bad, f"{tag} resumed state differs from the straight run's "
+          f"at {bad[:5]} ({len(bad)} of {len(pairs)} leaves)")
+    check(all(rinfo["losses"][i] == losses[i]
+              for i in range(resume_at, LM_TRAIN_STEPS)),
+          f"{tag} resumed losses differ from the straight run's")
+    save_s, n_bytes = saves[-1]
+    print(f"{tag} crashed after step {LM_TRAIN_CRASH_AT}, resumed from "
+          f"step {resume_at}: all {len(pairs)} leaves of the TrainState and "
+          f"the losses of steps {resume_at}..{LM_TRAIN_STEPS - 1} bitwise "
+          f"equal to the straight run (exact_numerics)")
+    print(f"[lm ckpt] TrainState of {len(pairs)} leaves, {n_bytes:,} bytes: "
+          f"save {save_s * 1e3:.1f} ms (fsync per file; "
+          f"{len(saves)} saves, {', '.join(f'{t:.1f}' for t, _ in saves)} s)"
+          f", restore onto the card {restores[0] * 1e3:.1f} ms ({card})")
+    del straight
+    shutil.rmtree(LM_TRAIN_DIR, ignore_errors=True)
+    gc.collect()
+    return resumed
+
+
+def lm_train_phase(dev: torch.device) -> int:
+    """Phase 8b: LM training of the zoo on ``dev`` (``lm_step_check`` for
+    each family, ``lm_train_run``, the trained weights through K7, the
+    binary-weights cut trained, packed and served, the CLI). Returns the
+    K7 launches (all "tc") of its main-path forwards."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import packing
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.train import tree
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = smi("name,power.limit")
+    full = configs.get_config(DENSE_ARCH)
+
+    # --- (a) one step, card vs CPU, every family's float32 cut
+    t0 = time.perf_counter()
+    lm_step_check(full.with_(n_layers=2, dtype="float32", remat=False),
+                  LM_STEP_TOKENS, dev, f"[lm step {DENSE_ARCH} 2L]")
+    for arch, layers, tokens in LM_STEP_CUTS:
+        cfg = configs.get_config(arch).with_(n_layers=layers,
+                                             dtype="float32", remat=False)
+        if cfg.family == "audio":
+            cfg = cfg.with_(n_encoder_layers=layers)
+        lm_step_check(cfg, tokens, dev, f"[lm step {arch} {layers}L]")
+    print(f"[lm step] (a) {time.perf_counter() - t0:.1f} s")
+
+    # --- (b) the 4-layer bf16 cut trained at full width
+    cut = full.with_(n_layers=LM_TRAIN_LAYERS)
+    state = lm_train_run(cut, dev)
+
+    # --- (c) the trained weights through K7 tc vs the blockwise path
+    b = SyntheticLM(cut.vocab_size, LM_TRAIN_K7_TOKENS[1],
+                    LM_TRAIN_K7_TOKENS[0], seed=SEED).batch(LM_TRAIN_STEPS)
+    b = type(b)(*(None if a is None else a.to(dev) for a in b))
+    zero_k7()
+    with torch.no_grad():
+        k7_logits = tf.forward_train(cut, state.params, b)[0]
+        torch.cuda.synchronize()
+    n_k7, n_tc = kfa.flash_attention.launches, kfa.flash_attention.launches_tc
+    check(n_k7 == n_tc == cut.n_layers, f"[lm k7] {n_k7} K7 launches "
+          f"({n_tc} tc), expected {cut.n_layers} tc")
+    live = tree.tree_map(lambda t: t.detach().requires_grad_(), state.params)
+    zero_k7()
+    plain = tf.forward_train(cut, live, b)[0].detach()
+    check(kfa.flash_attention.launches == 0, "[lm k7] the forward under "
+          "autograd launched K7")
+    del live
+    gap = rel_l2(k7_logits, plain)
+    agree = float((k7_logits.argmax(-1) == plain.argmax(-1)).double().mean())
+    check(bool(k7_logits.isfinite().all()) and gap <= LM_TRAIN_K7_GAP,
+          f"[lm k7] trained weights: K7 vs blockwise logits relative L2 "
+          f"{gap:.4g} > {LM_TRAIN_K7_GAP}")
+    print(f"[lm k7] the step-{LM_TRAIN_STEPS} weights, tokens "
+          f"{LM_TRAIN_K7_TOKENS}: forward_train under no_grad through "
+          f"{n_k7} K7 tc launches vs the blockwise path under autograd (0 "
+          f"launches): logits relative L2 {gap:.4g} (limit "
+          f"{LM_TRAIN_K7_GAP}), argmax agreement {agree:.4f}")
+    del state, k7_logits, plain, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- (d) binary weights: train, pack, serve
+    bw = cut.with_(quant="binary_weights")
+    nb, s = LM_TRAIN_TOKENS
+    zero_k7()
+    state, info = train_launch.train(bw, steps=LM_TRAIN_BW_STEPS, batch=nb,
+                                     seq=s, lr=LM_TRAIN_LR, seed=SEED,
+                                     device=dev, verbose=False)
+    check(kfa.flash_attention.launches == 0, "[lm bw] the train loop "
+          "launched K7")
+    ls = info["losses"]
+    first = float(np.mean([ls[i] for i in range(3)]))
+    last = float(np.mean([ls[i] for i in range(LM_TRAIN_BW_STEPS - 3,
+                                               LM_TRAIN_BW_STEPS)]))
+    check(all(np.isfinite(v) for v in ls.values()) and last < first,
+          f"[lm bw] loss did not fall: first 3 {first:.4f}, last 3 "
+          f"{last:.4f}")
+    latent = state.params
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    packed = packing.pack_params_for_serving(latent)
+    frac = packing.packed_fraction(packed)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, bw.vocab_size,
+                                         LM_PACKED_PROMPT)).to(dev)
+    k7_tc = n_k7
+    with torch.no_grad():
+        out = {}
+        for what, tree_ in (("packed", packed), ("latent", latent)):
+            zero_k7()
+            out[what] = tf.prefill(bw, tree_, toks).float().cpu()
+            torch.cuda.synchronize()
+            check(kfa.flash_attention.launches_tc == bw.n_layers
+                  == kfa.flash_attention.launches,
+                  f"[lm bw] {what} prefill: "
+                  f"{kfa.flash_attention.launches} K7 launches")
+            k7_tc += kfa.flash_attention.launches
+    msg = logits_agree(out["packed"], out["latent"],
+                       torch.ones(out["packed"].shape[:2], dtype=torch.bool),
+                       MOE_BF16_TOL, "[lm bw] packed vs latent STE prefill")
+    del latent
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = [rng.integers(0, bw.vocab_size, (RECURRENT_PROMPT,)).tolist()
+               for _ in range(RECURRENT_REQUESTS)]
+    eng = ServingEngine(bw, packed, n_slots=N_SLOTS,
+                        max_len=RECURRENT_MAX_LEN, device=dev)
+    model = eng.model
+    del packed
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_k7()
+    rids = [eng.submit(pr, max_new_tokens=RECURRENT_NEW) for pr in prompts]
+    served = eng.run()
+    check(sorted(served) == sorted(rids) and all(
+        len(served[r]) == RECURRENT_NEW for r in rids), "[lm bw serve] "
+        "requests lost or short")
+    check(kfa.flash_attention.launches == 0, "[lm bw serve] the decode "
+          "path launched K7")
+    state = model.init_state(N_SLOTS, RECURRENT_MAX_LEN)
+    feed = torch.zeros((N_SLOTS, 1), dtype=torch.int64, device=dev)
+    alone: list[int] = []
+    for i in range(RECURRENT_PROMPT + RECURRENT_NEW - 1):
+        feed[0, 0] = prompts[0][i] if i < RECURRENT_PROMPT else alone[-1]
+        logits, state = model.decode_step(eng.params, state, feed)
+        if i >= RECURRENT_PROMPT - 1:
+            alone.append(int(torch.argmax(logits[0, -1])))
+    check(alone == served[rids[0]], f"[lm bw serve] request 0's tokens "
+          f"{served[rids[0]]} differ from a hand-rolled decode loop {alone}")
+    print(f"[lm bw] {bw.name} {bw.n_layers} layers at quant binary_weights: "
+          f"{LM_TRAIN_BW_STEPS} steps at {LM_TRAIN_TOKENS}, loss "
+          f"{ls[0]:.4f} -> {ls[LM_TRAIN_BW_STEPS - 1]:.4f} (first 3 "
+          f"{first:.4f}, last 3 {last:.4f}); packed (packed_fraction "
+          f"{frac:.4f}); prefill {LM_PACKED_PROMPT} packed vs latent STE "
+          f"tree: {msg}; served {RECURRENT_REQUESTS} requests through "
+          f"{N_SLOTS} slots, request 0 equal to a hand-rolled decode loop "
+          f"on the packed tree, 0 K7 launches in decode")
+    del eng, model, state, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- (e) the CLI on the card: a crash after step 2, then --resume
+    ck_dir = os.path.join(LM_TRAIN_DIR, "cli")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           DENSE_ARCH, "--smoke", "--steps", "4", "--ckpt-dir", ck_dir,
+           "--ckpt-every", "2", "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    r1 = subprocess.run(cmd + ["--crash-at", "2"], cwd=ROOT, env=env,
+                        capture_output=True, text=True, timeout=300)
+    r2 = subprocess.run(cmd + ["--resume"], cwd=ROOT, env=env,
+                        capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    check(r1.returncode != 0 and "simulated fault after step 2" in r1.stderr,
+          f"[lm cli] the crash run: rc {r1.returncode}, {r1.stderr[-500:]}")
+    check(r2.returncode == 0 and "[resume] restored step 2" in r2.stdout
+          and "step     4  loss=" in r2.stdout
+          and os.path.isdir(os.path.join(ck_dir, "step_00000004")),
+          f"[lm cli] the resumed run: rc {r2.returncode}, "
+          f"{r2.stdout[-500:]} {r2.stderr[-500:]}")
+    print(f"[lm cli] python -m repro_torch.launch.train --arch {DENSE_ARCH} "
+          f"--smoke on the card: crashed after step 2, --resume restored "
+          f"step 2 and ran to step 4 ({cli_s:.1f} s for both processes); "
+          f"last line: {r2.stdout.strip().splitlines()[-2]}")
+    import shutil
+    shutil.rmtree(LM_TRAIN_DIR, ignore_errors=True)
+    print(f"[lm train] phase 8b wall {time.perf_counter() - t_phase:.1f} s; "
+          f"card: {card}")
+    return k7_tc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -4044,23 +4515,36 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
           f"{sys.version.split()[0]}")
-    build_phase()
-    probe_phase()
-    stats = kernel_phase(Bound())
+    walls: list[tuple[str, float]] = []
+
+    def timed(name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls.append((name, time.perf_counter() - t0))
+        print(f"[wall] phase {name}: {walls[-1][1]:.1f} s")
+        return out
+
+    dev = torch.device("cuda")
+    timed("1", build_phase)
+    timed("1 (probe)", probe_phase)
+    stats = timed("2", kernel_phase, Bound())
     reference = cpu_reference()
-    launches = serve_phase(reference)
-    tuned = tune_phase(reference)
-    fleet_phase(reference, tuned)
-    multi_phase(reference, tuned)
-    launches["binary_weight_matmul"] = lm_phase()
-    launches["flash_attention"], launches["flash_attention_tc"] = (
-        dense_phase())
-    launches["flash_attention"] += moe_phase(torch.device("cuda"))
-    launches["flash_attention"] += recurrent_phase(torch.device("cuda"))
-    simt, tc = audio_phase(torch.device("cuda"))
+    launches = timed("3", serve_phase, reference)
+    tuned = timed("4", tune_phase, reference)
+    timed("5", fleet_phase, reference, tuned)
+    timed("5b", multi_phase, reference, tuned)
+    launches["binary_weight_matmul"] = timed("6", lm_phase)
+    launches["flash_attention"], launches["flash_attention_tc"] = timed(
+        "7", dense_phase)
+    launches["flash_attention"] += timed("7b", moe_phase, dev)
+    launches["flash_attention"] += timed("7c", recurrent_phase, dev)
+    simt, tc = timed("7d", audio_phase, dev)
     launches["flash_attention"] += simt
     launches["flash_attention_tc"] += tc
-    train_phase(torch.device("cuda"))
+    timed("8", train_phase, dev)
+    launches["flash_attention_tc"] += timed("8b", lm_train_phase, dev)
+    print("[wall] " + ", ".join(f"{n} {t:.1f} s" for n, t in walls)
+          + f"; total {sum(t for _, t in walls):.1f} s")
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         s = stats[name]

@@ -25,6 +25,13 @@ true S, so no input is padded. ``pick_variant`` chooses the kernel from
   wrapper pads hd with zero columns and copies a non-contiguous or
   unaligned input (``simt_operands``), and returns a contiguous output.
 
+K7 has no backward (nor has the reference's Pallas kernel: no
+``custom_vjp``), and its output, written through ctypes, carries no
+``grad_fn``. So the wrapper raises ``RuntimeError`` when autograd records
+(grad mode on and q, k or v requiring grad) rather than hand back a
+silently detached result; the models take their blockwise plain
+attention then (``models/attention.py``).
+
 Either launches on the current stream, allocates only its output, and
 counts its launches in the plain ints ``flash_attention.launches`` (every
 K7 launch), ``flash_attention.launches_tc`` and
@@ -173,6 +180,25 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{MAX_HEAD_DIM}")
 
 
+def autograd_records(*ts: torch.Tensor) -> bool:
+    """True when autograd records through any of ``ts``: grad mode on and
+    one of them requires grad. K7 cannot run then; the models take their
+    blockwise plain attention."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def check_no_grad(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> None:
+    """Raise ``RuntimeError`` when autograd records through q, k or v: K7
+    has no backward, so its output would carry no gradient."""
+    if autograd_records(q, k, v):
+        raise RuntimeError(
+            "K7 (flash_attention) has no backward, and its output would be "
+            "silently detached: call it under torch.no_grad() or on "
+            "tensors that do not require grad; under autograd the models "
+            "take models/attention.py::blockwise_causal_attention")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """K7: q (B, Hq, S, hd), k/v (B, Hkv, S, hd), CUDA tensors of one
@@ -182,8 +208,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``simt_operands`` (a copy where the input is not contiguous, not
     16-byte aligned, or its rows are not whole 16-byte units). A "tc"
     barrier wait that has not completed after 60 s traps, which leaves
-    the CUDA context unusable for the rest of the process."""
+    the CUDA context unusable for the rest of the process. Raises
+    ``RuntimeError`` under autograd (``check_no_grad``)."""
     check_inputs(q, k, v)
+    check_no_grad(q, k, v)
     variant = pick_variant(q.dtype, q.shape[3])
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if not t.is_cuda:

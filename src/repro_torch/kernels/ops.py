@@ -239,9 +239,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launches K7 in the variant ``kernels/flash_attention.py::pick_variant``
     names, which makes the copies its variant needs ("tc" reads strided
     head-major views in place and may return a non-contiguous view). On a
-    CPU tensor it runs ``kernels/ref.py::flash_attention_ref``.
+    CPU tensor it runs ``kernels/ref.py::flash_attention_ref``. On every
+    device it raises ``RuntimeError`` when autograd records through q, k
+    or v (``kfa.check_no_grad``): K7 has no backward.
     """
     kfa.check_inputs(q, k, v)
+    kfa.check_no_grad(q, k, v)
     if q.is_cuda:
         return kfa.flash_attention(q, k, v, causal=causal)
     return ref.flash_attention_ref(q, k, v, causal=causal)

@@ -18,6 +18,13 @@ windows, a KV cache and the one-token decode step.
   takes ``blockwise_causal_attention`` on every device, never K7, as the
   reference does on every backend; ``gqa_decode_step`` masks the keys
   that fell out of the window. No config of the zoo sets a window.
+* Under autograd (grad mode on and q, k or v requiring grad: a training
+  step), ``gqa_forward`` takes ``blockwise_causal_attention`` on every
+  device too, with K/V repeated to the query heads and the reference's
+  ``block`` and ``causal``: the reference trains through it off the TPU,
+  and K7 has no backward (its wrapper raises there). Prefill, serving and
+  any forward under ``torch.no_grad()`` stay on K7. Whisper's encoder
+  inherits the rule.
 
 * ``cross_attn_forward`` (the audio family's decoder) attends every
   query to the encoder's K/V in plain PyTorch, as the reference does: K7
@@ -31,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import autograd_records
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -145,11 +153,11 @@ def _qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
 def gqa_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                 *, causal: bool = True) -> torch.Tensor:
     """Training / prefill attention (no cache). x: (B, S, D). K7 through
-    ``ops.flash_attention``, or with ``cfg.window`` the blockwise plain
-    attention."""
+    ``ops.flash_attention``, or, with ``cfg.window`` or under autograd
+    (``autograd_records``), the blockwise plain attention."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, cfg, x, positions)
-    if cfg.window is not None:
+    if cfg.window is not None or autograd_records(q, k, v):
         g = cfg.n_heads // cfg.n_kv_heads
         out = blockwise_causal_attention(q, _repeat_kv(k, g),
                                          _repeat_kv(v, g), window=cfg.window,

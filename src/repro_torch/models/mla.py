@@ -12,7 +12,11 @@ RoPE key per token shared by every head; the cache holds only
   views: K7 on a CUDA tensor (hd 192 at DeepSeek-V2's widths, the
   CUDA-core variant "simt"), its plain version on a CPU tensor. The
   reference's CPU route (``attention.blockwise_causal_attention``) has the
-  same semantics as the plain version.
+  same semantics as the plain version. Under autograd (grad mode on and
+  q, k or v requiring grad: a training step) it takes that blockwise
+  route on every device, as the reference trains off the TPU: K7 has no
+  backward (its wrapper raises there). Prefill, serving and any forward
+  under ``torch.no_grad()`` stay on K7.
 * ``mla_decode_step`` is the absorbed form: ``W_uk`` folded into the
   query and ``W_uv`` into the output, so one token attends in the latent
   space, with the einsums in float32, as the reference does (no kernel
@@ -31,8 +35,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import autograd_records
 from repro_torch.models import layers
-from repro_torch.models.attention import NEG_INF, _quant
+from repro_torch.models.attention import (NEG_INF, _quant,
+                                         blockwise_causal_attention)
 
 
 def mla_init(generator: torch.Generator, cfg, dtype=torch.bfloat16,
@@ -86,7 +92,9 @@ def _latents(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
 
 def mla_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                 *, causal: bool = True) -> torch.Tensor:
-    """Training / prefill attention (expanded K/V, no cache). x: (B, S, D)."""
+    """Training / prefill attention (expanded K/V, no cache). x: (B, S, D).
+    K7 through ``ops.flash_attention``, or under autograd the blockwise
+    plain attention."""
     b, s, _ = x.shape
     h = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -98,8 +106,12 @@ def mla_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
     vp = F.pad(v, (0, dn + dr - dv))              # one head width for q, k, v
-    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              vp.transpose(1, 2), causal=causal).transpose(1, 2)
+    if autograd_records(q, k, vp):
+        out = blockwise_causal_attention(q, k, vp, causal=causal)
+    else:
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  vp.transpose(1, 2),
+                                  causal=causal).transpose(1, 2)
     return layers.dense(p["wo"], out[..., :dv].reshape(b, s, h * dv), quant)
 
 

@@ -31,13 +31,18 @@ steps one token per slot through ``decode_step``, which updates the
 per-layer caches (K/V, MLA's latents, the recurrent states and the
 shared block's per-application K/V) in place.
 
-``loss_fn`` is not ported: on the card
-``forward_train`` reaches K7, which has no backward (ROADMAP queue 1).
-The BCNN and the XNOR LM train (``train/bcnn_train.py``,
-``models/xnor_lm.py::loss_fn``).
+Training: ``loss_fn`` is the reference's chunked cross-entropy
+(``LOSS_CHUNK`` positions a chunk, float32 logits, each chunk under
+``torch.utils.checkpoint``). Under autograd the attention takes the
+blockwise plain path on every device
+(``kernels/flash_attention.py::autograd_records``), so a training step
+launches no K7; with ``cfg.remat`` each layer (encoder layers too) runs
+under ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
+over its scan. A forward under ``torch.no_grad()`` is the inference
+path, unchanged.
 
 Entry points (functions of (cfg, params, …)):
-    init_params   forward_hidden   forward_train   prefill
+    init_params   forward_hidden   forward_train   loss_fn   prefill
     init_serve_state   decode_step   params_from_numpy   numpy_params
 """
 from __future__ import annotations
@@ -46,8 +51,12 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, layers, mamba2, mla, moe, rwkv6
+# tree_leaves / tree_unflatten are re-exported for callers of this module
+from repro_torch.train.tree import (  # noqa: F401
+    tree_leaves, tree_map, tree_unflatten)
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
@@ -101,13 +110,6 @@ def _block_init(generator: torch.Generator, cfg, layer_kind: str,
     p["mlp"] = layers.mlp_init(generator, cfg.d_model, cfg.d_ff, mlp_type,
                                dt, device)
     return p
-
-
-def tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts of the same structure."""
-    if isinstance(trees[0], dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
 
 
 def _stack_init(generator: torch.Generator, cfg, layer_kind: str, n: int,
@@ -220,20 +222,6 @@ def numpy_params(tree: dict) -> dict:
     return tree_map(leaf, tree)
 
 
-def tree_leaves(tree: dict) -> list[torch.Tensor]:
-    """The leaves of a parameter tree in a fixed (insertion) order."""
-    out: list[torch.Tensor] = []
-    tree_map(out.append, tree)
-    return out
-
-
-def tree_unflatten(like: dict, leaves) -> dict:
-    """A tree shaped as ``like`` holding ``leaves`` (``tree_leaves``
-    order)."""
-    it = iter(leaves)
-    return tree_map(lambda _: next(it), like)
-
-
 # ---------------------------------------------------------------------------
 # full-sequence forward (training & prefill share it)
 # ---------------------------------------------------------------------------
@@ -306,34 +294,54 @@ def _apply_dec_xattn(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     return x + layers.mlp_apply(p["mlp"], h, "gelu", cfg.quant)
 
 
+def _remat(cfg, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant)
+    when ``cfg.remat`` is set and grad mode is on: the layer's
+    activations are recomputed in the backward pass, as the reference's
+    ``_maybe_remat`` (``jax.checkpoint``) does. The values are the same
+    either way."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _decoder_stack(cfg, params: dict, x: torch.Tensor,
                    positions: torch.Tensor, enc_kv=None):
     """Run the decoder layer stack, one layer of the stacked tree at a
-    time → (x, the MoE layers' summed aux loss, float32). The recurrent
-    families start every layer from a zero state (a full sequence); the
-    hybrid applies the shared block after every ``attn_every`` layers;
-    the audio family's layer i cross-attends to row i of ``enc_kv``."""
+    time (each under ``_remat``) → (x, the MoE layers' summed aux loss,
+    float32). The recurrent families start every layer from a zero state
+    (a full sequence); the hybrid applies the shared block after every
+    ``attn_every`` layers; the audio family's layer i cross-attends to
+    row i of ``enc_kv``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     every = _hybrid_chunks(cfg)[1] if cfg.family == "hybrid" else 0
     for i, (kind, p) in enumerate(_layers(cfg, params)):
         if kind == "dec_xattn":
-            x = _apply_dec_xattn(p, cfg, x, positions, enc_kv[0][i],
-                                 enc_kv[1][i])
+            x = _remat(cfg, _apply_dec_xattn, p, cfg, x, positions,
+                       enc_kv[0][i], enc_kv[1][i])
         elif kind == "moe":
-            x, a = _apply_moe(p, cfg, x, positions)
+            x, a = _remat(cfg, _apply_moe, p, cfg, x, positions)
             aux = aux + a
         elif kind == "rwkv":
-            x, _ = _apply_rwkv(p, cfg, x,
-                               _recurrent_state(cfg, x.shape[0], x.device))
+            x, _ = _remat(cfg, _apply_rwkv, p, cfg, x,
+                          _recurrent_state(cfg, x.shape[0], x.device))
         elif kind == "mamba":
-            x, _ = _apply_mamba(p, cfg, x,
-                                _recurrent_state(cfg, x.shape[0], x.device))
+            x, _ = _remat(cfg, _apply_mamba, p, cfg, x,
+                          _recurrent_state(cfg, x.shape[0], x.device))
             if (i + 1) % every == 0:          # the weight-shared block
-                x = _apply_dense_attn(params["shared_attn"], cfg, x,
-                                      positions)
+                x = _remat(cfg, _apply_dense_attn, params["shared_attn"],
+                           cfg, x, positions)
         else:
-            x = _apply_dense_attn(p, cfg, x, positions)
+            x = _remat(cfg, _apply_dense_attn, p, cfg, x, positions)
     return x, aux
+
+
+def _apply_enc_layer(p: dict, cfg, x: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    h = layers.apply_norm(p["ln1"], x, cfg.norm_type)
+    x = x + attention.gqa_forward(p["attn"], cfg, h, positions, causal=False)
+    h = layers.apply_norm(p["ln2"], x, cfg.norm_type)
+    return x + layers.mlp_apply(p["mlp"], h, "gelu", cfg.quant)
 
 
 def _encode(cfg, params: dict, frames: torch.Tensor):
@@ -349,11 +357,7 @@ def _encode(cfg, params: dict, frames: torch.Tensor):
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     enc = params["enc"]
     for i in range(cfg.n_encoder_layers):
-        p = _layer(enc, i)
-        h = layers.apply_norm(p["ln1"], x, cfg.norm_type)
-        x = x + attention.gqa_forward(p["attn"], cfg, h, pos, causal=False)
-        h = layers.apply_norm(p["ln2"], x, cfg.norm_type)
-        x = x + layers.mlp_apply(p["mlp"], h, "gelu", cfg.quant)
+        x = _remat(cfg, _apply_enc_layer, _layer(enc, i), cfg, x, pos)
     x = layers.apply_norm(params["enc_norm"], x, cfg.norm_type)
     b, se, _ = x.shape
     hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -402,6 +406,40 @@ def forward_train(cfg, params: dict, batch: Batch):
     """Full-sequence causal forward → ((B, S, vocab) logits, aux_loss)."""
     x, aux = forward_hidden(cfg, params, batch)
     return layers.logits_head(_head(params), x), aux
+
+
+LOSS_CHUNK = 512
+
+
+def _ce_chunk(head: dict, xch: torch.Tensor, tch: torch.Tensor):
+    """Summed cross-entropy of one chunk: float32 logits, logsumexp minus
+    the gold logit (a gather, equal to the reference's one-hot dot)."""
+    logits = layers.logits_head(head, xch).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)                     # (B, chunk)
+    gold = torch.gather(logits, -1, tch[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
+
+
+def loss_fn(cfg, params: dict, batch: Batch):
+    """The reference's chunked big-vocab cross-entropy → (loss, {"nll",
+    "aux"}): logits exist for one chunk of ``min(LOSS_CHUNK, S)``
+    positions at a time, recomputed in the backward pass (each chunk
+    under ``torch.utils.checkpoint`` when grad mode is on); positions past
+    ``(S // chunk) * chunk`` are left out, as in the reference. nll is the
+    mean over the positions counted; loss = nll + 0.01 · aux."""
+    x, aux = forward_hidden(cfg, params, batch)
+    head = _head(params)
+    b, s, _ = x.shape
+    chunk = min(LOSS_CHUNK, s)
+    nc = s // chunk
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        args = (head, x[:, sl], batch.targets[:, sl].to(x.device))
+        total = total + (checkpoint(_ce_chunk, *args, use_reentrant=False)
+                         if torch.is_grad_enabled() else _ce_chunk(*args))
+    nll = total / (b * nc * chunk)
+    return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
 
 def prefill(cfg, params: dict, tokens: torch.Tensor,

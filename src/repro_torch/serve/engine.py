@@ -33,6 +33,7 @@ storage.
 """
 from __future__ import annotations
 
+import dataclasses
 from collections import deque
 
 import numpy as np
@@ -41,6 +42,7 @@ import torch
 from repro_torch.core.execution_plan import resolve_device
 from repro_torch.models import transformer
 from repro_torch.serve.slots import SlotScheduler
+from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
 
 
 class TransformerServeModel:
@@ -60,7 +62,7 @@ class TransformerServeModel:
         self._spec = _spec(params)      # structure, shapes, dtypes only
         # a hot-swap overwrites these in place: copies, never the caller's
         self.arrays = tuple(t.to(self.device, copy=True)
-                            for t in transformer.tree_leaves(params))
+                            for t in tree_leaves(params))
 
     def init_state(self, n_slots: int, max_len: int):
         return transformer.init_serve_state(self.cfg, n_slots, max_len,
@@ -68,14 +70,14 @@ class TransformerServeModel:
 
     def decode_step(self, arrays, state, tokens):
         return transformer.decode_step(
-            self.cfg, transformer.tree_unflatten(self._spec, arrays), state,
+            self.cfg, tree_unflatten(self._spec, arrays), state,
             tokens)
 
     def encode(self, arrays, frames: torch.Tensor):
         """The audio family's encoder: (B, S_enc, D) frames → cross (K, V),
         each (L, B, S_enc, H, hd), in the frames' dtype."""
         return transformer._encode(
-            self.cfg, transformer.tree_unflatten(self._spec, arrays), frames)
+            self.cfg, tree_unflatten(self._spec, arrays), frames)
 
     def reset_slot(self, state, i: int, n_slots: int):
         """Zero slot ``i`` of every tensor of the caches, in place (each
@@ -98,7 +100,7 @@ class TransformerServeModel:
                 f"params tree differs from the served model's in structure, "
                 f"shape or dtype: {_spec(new_params)} != {self._spec}")
         return tuple(t.to(self.device)
-                     for t in transformer.tree_leaves(new_params))
+                     for t in tree_leaves(new_params))
 
 
 def state_tensors(tree) -> list[torch.Tensor]:
@@ -119,8 +121,17 @@ def slot_part(t: torch.Tensor, i: int, n_slots: int) -> torch.Tensor | None:
     return None
 
 
+@dataclasses.dataclass(frozen=True)
+class LeafSpec:
+    """A leaf's shape and dtype: a leaf of ``_spec``'s tree (not a tuple,
+    which ``train/tree.py`` walks into)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
 def _spec(params: dict) -> dict:
-    return transformer.tree_map(lambda t: (tuple(t.shape), t.dtype), params)
+    """The tree's structure with a ``LeafSpec`` a leaf."""
+    return tree_map(lambda t: LeafSpec(tuple(t.shape), t.dtype), params)
 
 
 class ServingEngine:

@@ -1,2 +1,3 @@
-"""The BCNN's training half: the optimizer, step-atomic checkpoints and
-the restartable trainer."""
+"""Training: the optimizer, step-atomic checkpoints, the BCNN's
+restartable trainer, the LM zoo's train step and elastic shard
+assignment."""

@@ -64,7 +64,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.configs.rwkv6_3b", "repro_torch.configs.zamba2_7b",
             "repro_torch.configs.phi3_vision_4_2b",
             "repro_torch.configs.whisper_medium",
-            "repro_torch.serve.packing"} <= set(modules)
+            "repro_torch.serve.packing", "repro_torch.train.train_loop",
+            "repro_torch.train.elastic",
+            "repro_torch.launch.train"} <= set(modules)
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {modules!r}:\n"
@@ -125,6 +127,13 @@ def test_cuda_entry_points_raise_without_gpu():
         ServingEngine(dense, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "qwen3-8b", "--smoke", "--requests", "1"])
+    from repro_torch.launch import train as train_launch
+    from repro_torch.train import optimizer, train_loop
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_launch.main(["--arch", "qwen3-8b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_loop.init_train_state(dense, torch.Generator(),
+                                    optimizer.AdamW())
 
 
 def test_init_matches_reference_distributions():
