@@ -203,6 +203,24 @@ Phases, each fatal on failure (nothing is caught):
    at 4 slots, request 0 equal to a hand-rolled decode loop on the packed
    tree; (e) ``python -m repro_torch.launch.train --smoke`` on the card
    crashed after step 2 and ``--resume``d to step 4.
+9. The LM zoo's multi-device forms (``parallel/pipeline.py``,
+   ``launch/mesh.py``, ``launch/dryrun_lib.py``): (a) Qwen3-8B at full
+   width and depth, bf16, ``MULTI_LM_MICRO`` microbatches of
+   ``MULTI_LM_TOKENS`` embedded tokens pipelined through
+   ``MULTI_LM_STAGES`` stages (``plan_stages``) side by side on the card
+   (a mesh of the one device repeated), each layer
+   ``transformer._apply_dense_attn`` under ``torch.no_grad()``: the
+   pipeline bitwise equal to ``sequential_forward`` and that to
+   ``_decoder_stack`` per microbatch, exactly one K7 tc launch a layer
+   and microbatch, both forms timed (host wall and CUDA events) and
+   profiled, each stage's device ms for one microbatch, K7 tc alone at
+   the path's (1, 32, 8, 128), S = 1024; (b) the same model cut to 2
+   layers, float32, pipelined over 2 stages on the card against the
+   port's ``sequential_forward`` on the CPU at ``DENSE_TOL`` (K7 simt at
+   hd 128); (c) the dry run's one-device report
+   (``make_local_mesh``) of a prefill (1, 4096): its param bytes equal
+   to the card's tree, its FLOPs beside phase 7's measured kernel ms, its
+   resident + temp bytes beside a measured ``max_memory_allocated``.
 
 Phase 2 also holds K7 against its plain version at the dense LM's
 attention shape (B, Hq, Hkv, hd) = (1, 32, 8, 128), causal, S in {128,
@@ -264,14 +282,14 @@ N_SLOTS = 4
 N_REQUESTS = 16
 SEED = 0
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3 rate
-# and dense int8 tensor-core rate. Integer issue rates per SM per clock
-# for compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
-# instruction throughput): population count 16, 32-bit bitwise operations
-# and adds 64.
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): the HBM3
+# rate and the bf16 tensor-core rate live in the package, beside the dry
+# run that prices cells with them (``hw()``); the dense int8 tensor-core
+# rate and the float32 CUDA-core rate here. Integer issue rates per SM
+# per clock for compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput): population count 16, 32-bit
+# bitwise operations and adds 64.
 INT8_OPS_PER_S = 1979e12
-BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12          # CUDA cores, no tensor cores
 POPC_PER_CLK_PER_SM = 16
 ALU_PER_CLK_PER_SM = 64
@@ -540,6 +558,13 @@ LM_TRAIN_K7_TOKENS = (2, 1024)
 LM_TRAIN_K7_GAP = 0.02
 LM_PACKED_PROMPT = (1, 128)
 LM_TRAIN_DIR = os.path.join(ROOT, "build", "chip_smoke_lm_train")
+# the LM zoo's multi-device forms (phase 9): Qwen3-8B's stage pipeline at
+# full depth, bf16 (microbatches of (1, 1024) tokens, stages side by side
+# on the card), and its float32 2-layer cut on 2 stages (tokens
+# DENSE_CPU_TOKENS, one microbatch a row) against the CPU port
+MULTI_LM_STAGES = 4
+MULTI_LM_MICRO = 8
+MULTI_LM_TOKENS = (1, 1024)
 # training (phase 8): the default recipe, the crash step, the card-vs-CPU
 # step's tolerances, and where checkpoints and the artifact go (inside
 # the checkout, gitignored, removed at the end)
@@ -559,6 +584,12 @@ TRAIN_STEP_TOL = {"loss": 1e-4, "grads": 1e-3, "moments": 1e-3,
                   "running_stats": 1e-4}
 TRAIN_ADAM_FLAT = 1e-6
 TRAIN_SAME = 1e-6               # |Δ| of a weight "equal" after the step
+
+
+def hw() -> dict:
+    """The card's data-sheet figures (``launch/dryrun_lib.py::HW``)."""
+    from repro_torch.launch.dryrun_lib import HW
+    return HW
 
 
 def check(cond: bool, msg: str) -> None:
@@ -606,7 +637,7 @@ class Bound:
         self.bitmacs_per_s = {
             "vpu": self.sms * clock_mhz * 1e6 * u["bits"] / unit_clk,
             "mxu": INT8_OPS_PER_S / 2,
-            "bf16": BF16_FLOPS_PER_S / 2,
+            "bf16": hw()["peak_flops"] / 2,
         }
         print(f"bound model: {self.sms} SMs at {clock_mhz:.0f} MHz max SM "
               f"clock; vpu: per 16-byte unit ({u['bits']} bit-MACs) "
@@ -615,10 +646,10 @@ class Bound:
               f"{POPC_PER_CLK_PER_SM} a clock per SM -> {unit_clk:.4g} "
               f"clocks, {self.bitmacs_per_s['vpu']:.4g} bit-MAC/s; int8 "
               f"MMA {self.bitmacs_per_s['mxu']:.4g} MAC/s; HBM "
-              f"{HBM_BYTES_PER_S:.3g} B/s")
+              f"{hw()['hbm_bw']:.3g} B/s")
 
     def __call__(self, variant: str, nbytes: int, bitmacs: int):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_bytes = nbytes / hw()["hbm_bw"] * 1e3
         t_ops = bitmacs / self.bitmacs_per_s[variant] * 1e3
         return t_bytes, t_ops
 
@@ -1129,8 +1160,8 @@ def flash_bound(b, hq, hkv, hd, s, causal, dtype):
     esize = 2 if dtype == torch.bfloat16 else 4
     nbytes = (2 * b * hq + 2 * b * hkv) * s * hd * esize
     kept = s * (s + 1) // 2 if causal else s * s
-    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-    return (nbytes / HBM_BYTES_PER_S * 1e3,
+    rate = hw()["peak_flops"] if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    return (nbytes / hw()["hbm_bw"] * 1e3,
             4 * b * hq * hd * kept / rate * 1e3)
 
 
@@ -2428,11 +2459,11 @@ def bf16_cut(full, rng, dev) -> None:
           "plain logits are not finite")
 
 
-def dense_phase() -> tuple[int, int]:
+def dense_phase() -> tuple[int, int, float]:
     """Phase 7: the dense LM zoo at Qwen3-8B's full width. Returns K7's
     launch counts (simt, tc): "simt" from the float32 two-layer cut's
     ``prefill``, "tc" from the full-depth bf16 prefill (the main path's
-    run)."""
+    run), and that prefill's kernel ms (the profiler's sum)."""
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models import transformer as tf
@@ -2541,7 +2572,8 @@ def dense_phase() -> tuple[int, int]:
           f"launches, all tc, peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB; CUDA events {time_ms(prefill, reps=3, warmup=0):.2f} ms per "
           f"prefill")
-    profile_call(prefill, 2, f"prefill {DENSE_PREFILL}")
+    prefill_kernel_ms = profile_call(prefill, 2,
+                                     f"prefill {DENSE_PREFILL}")[1]
     del logits
 
     # --- (e) served through the default TransformerServeModel
@@ -2609,7 +2641,7 @@ def dense_phase() -> tuple[int, int]:
           f"{len(ptrs)} weight tensors kept their storage; {changed} of "
           f"{LM_REQUESTS} requests' tokens changed")
     print(f"card: {smi('name,power.limit')}")
-    return simt_launches, k7_launches
+    return simt_launches, k7_launches, prefill_kernel_ms
 
 
 class RouteLog:
@@ -4499,6 +4531,209 @@ def lm_train_phase(dev: torch.device) -> int:
     return k7_tc
 
 
+def stage_stack(stack: dict, s: int, lps: int) -> dict:
+    from repro_torch.train.tree import tree_map
+    return tree_map(lambda a: a[s * lps:(s + 1) * lps], stack)
+
+
+def lm_multi_phase(dev: torch.device, prefill_kernel_ms: float
+                   ) -> tuple[int, int]:
+    """Phase 9: the LM zoo's multi-device forms on ``dev``. Returns K7's
+    launches (simt, tc) of its pipelined forwards: (b)'s float32 cut and
+    (a)'s full-depth bf16 run (the main path's)."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import dryrun_lib
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import pipeline as pp
+    from repro_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = smi("name,power.limit")
+    full = configs.get_config(DENSE_ARCH)
+    rng = np.random.default_rng(SEED)
+
+    def layer_fn(cfg, s: int, device):
+        pos = torch.arange(s, device=device)[None]
+        return lambda lp, h: tf._apply_dense_attn(lp, cfg, h, pos)
+
+    # --- (a) full width and depth, bf16, 4 stages side by side
+    bounds = pp.plan_stages(full, MULTI_LM_STAGES)
+    lps = full.n_layers // MULTI_LM_STAGES
+    check(bounds == [s * lps for s in range(MULTI_LM_STAGES + 1)],
+          f"[lm pipeline] plan_stages {bounds} is not {MULTI_LM_STAGES} "
+          f"even stages")
+    mesh = mesh_lib.make_mesh((MULTI_LM_STAGES,), ("stage",),
+                              devices=[dev] * MULTI_LM_STAGES)
+    params = tf.init_params(
+        full, torch.Generator(device=dev).manual_seed(SEED), dev)
+    stack = params["stack0_dense_attn"]
+    toks = torch.from_numpy(rng.integers(
+        0, full.vocab_size, (MULTI_LM_MICRO, *MULTI_LM_TOKENS))).to(dev)
+    x = layers.embed_lookup(params["embed"], toks)   # (n_micro, B, S, D)
+    fn = layer_fn(full, MULTI_LM_TOKENS[1], dev)
+
+    def pipelined():
+        return pp.pipelined_forward(stack, x, mesh=mesh, axis="stage",
+                                    apply_fn=fn, layers_per_stage=lps)
+
+    def sequential():
+        return pp.sequential_forward(stack, x, apply_fn=fn)
+
+    with torch.no_grad():
+        pipelined()                                       # warm
+        torch.cuda.synchronize()
+        zero_k7()
+        got = pipelined()
+        torch.cuda.synchronize()
+        n_tc = kfa.flash_attention.launches_tc
+        want_tc = full.n_layers * MULTI_LM_MICRO
+        check(n_tc == want_tc == kfa.flash_attention.launches,
+              f"[lm pipeline] {kfa.flash_attention.launches} K7 launches "
+              f"({n_tc} tc), expected {want_tc} tc")
+        seq = sequential()
+        check(torch.equal(got, seq), "[lm pipeline] pipelined_forward != "
+              "sequential_forward: max |diff| "
+              f"{float((got.float() - seq.float()).abs().max()):.3g}")
+        pos = torch.arange(MULTI_LM_TOKENS[1], device=dev)[None]
+        for m in range(MULTI_LM_MICRO):
+            h, _ = tf._decoder_stack(full, params, x[m], pos)
+            check(torch.equal(seq[m], h), f"[lm pipeline] microbatch {m}: "
+                  f"sequential_forward != _decoder_stack")
+        check(bool(got.isfinite().all()), "[lm pipeline] not finite")
+        print(f"[lm pipeline] {DENSE_ARCH} full width and depth, bf16: "
+              f"{MULTI_LM_MICRO} microbatches of {MULTI_LM_TOKENS} tokens "
+              f"through {MULTI_LM_STAGES} stages of {lps} layers "
+              f"(plan_stages {bounds}) side by side on the card: bitwise "
+              f"== sequential_forward == _decoder_stack per microbatch; "
+              f"{n_tc} K7 launches, all tc ({full.n_layers} layers x "
+              f"{MULTI_LM_MICRO} microbatches)")
+        for name, f in (("pipelined", pipelined), ("sequential", sequential)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                f()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 3 * 1e3
+            ev = time_ms(f, reps=5, warmup=1)
+            print(f"[lm pipeline] {name}: wall {wall:.2f} ms, CUDA events "
+                  f"{ev:.2f} ms per forward of {MULTI_LM_MICRO} x "
+                  f"{MULTI_LM_TOKENS} tokens "
+                  f"({MULTI_LM_MICRO * MULTI_LM_TOKENS[1] / ev * 1e3:.0f} "
+                  f"tokens/s)")
+            profile_call(f, 2, f"{name} forward")
+        stage_ms = [time_ms(lambda s=s: pp.sequential_forward(
+            stage_stack(stack, s, lps), x[:1], apply_fn=fn), reps=5,
+            warmup=1) for s in range(MULTI_LM_STAGES)]
+        print(f"[lm pipeline] each stage alone, one microbatch, CUDA "
+              f"events: {', '.join(f'{t:.3f}' for t in stage_ms)} ms")
+        hq, hkv, hd = full.n_heads, full.n_kv_heads, full.head_dim
+        s_len = MULTI_LM_TOKENS[1]
+        q, k, v = (torch.randn((1, s_len, h, hd), dtype=torch.bfloat16,
+                               device=dev).transpose(1, 2)
+                   for h in (hq, hkv, hkv))
+        check(all(kfa.tma_ready(t) for t in (q, k, v)),
+              "[lm pipeline] K7 views not tma_ready")
+        k7_ms = device_ms(lambda: kfa.flash_attention(q, k, v))
+        b_bytes, b_ops = flash_bound(1, hq, hkv, hd, s_len, True,
+                                     torch.bfloat16)
+        print(f"[lm pipeline] K7 tc alone at (1, {hq}, {hkv}, {hd}), S = "
+              f"{s_len}, causal, bf16 views: {k7_ms:.4f} ms per call "
+              f"(device), bound {max(b_bytes, b_ops):.4f} ms "
+              f"({'bytes' if b_bytes > b_ops else 'operations'})")
+        del q, k, v, got, seq, h
+
+        # --- (c) the dry run's one-device report of a prefill (1, 4096)
+        shape = InputShape("prefill", DENSE_PREFILL[1], DENSE_PREFILL[0],
+                           "prefill")
+        local = mesh_lib.make_local_mesh(dev)
+        res = dryrun_lib.run_cell(DENSE_ARCH, shape, mesh=local)
+        check(res.ok, f"[lm dryrun] {res.error}")
+        abstract = dryrun_lib.abstract_params(full)
+        param_b = sharding.local_bytes(
+            abstract, sharding.param_specs(abstract, local), local)
+        card_b = dense_tree_bytes(params)
+        check(param_b == card_b, f"[lm dryrun] param bytes {param_b} != "
+              f"the card's tree {card_b}")
+        ptoks = torch.from_numpy(rng.integers(0, full.vocab_size,
+                                              DENSE_PREFILL)).to(dev)
+        del x
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tf.prefill(full, params, ptoks)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        resident = res.arg_bytes
+        print(f"[lm dryrun] {DENSE_ARCH} prefill {DENSE_PREFILL} on "
+              f"make_local_mesh: param bytes {param_b} == the card's tree "
+              f"{card_b}; traced {res.hlo_flops:.6g} FLOP, {res.hlo_bytes:.6g}"
+              f" bytes; phase 7's kernel time {prefill_kernel_ms:.4f} ms -> "
+              f"{res.hlo_flops / prefill_kernel_ms / 1e9:.1f} TFLOP/s "
+              f"achieved (t_compute {res.t_compute * 1e3:.4f} ms, "
+              f"t_memory {res.t_memory * 1e3:.4f} ms at the data sheet's "
+              f"rates; bottleneck {res.bottleneck}); resident "
+              f"{resident / 1e9:.4f} GB + temp {res.temp_bytes / 1e9:.4f} GB "
+              f"= {(resident + res.temp_bytes) / 1e9:.4f} GB vs measured "
+              f"max_memory_allocated {peak / 1e9:.4f} GB; fits "
+              f"{res.fits}; traced in {res.compile_s:.1f} s")
+    del params, stack, ptoks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- (b) 2 layers at full width, float32: 2 stages on the card vs CPU
+    cut = full.with_(n_layers=2, dtype="float32")
+    params = tf.init_params(
+        cut, torch.Generator(device=dev).manual_seed(SEED), dev)
+    stack = params["stack0_dense_attn"]
+    toks = torch.from_numpy(rng.integers(0, cut.vocab_size,
+                                         DENSE_CPU_TOKENS)).to(dev)
+    x = layers.embed_lookup(params["embed"], toks)[:, None]
+    cut_mesh = mesh_lib.make_mesh((2,), ("stage",), devices=[dev] * 2)
+    with torch.no_grad():
+        fn = layer_fn(cut, DENSE_CPU_TOKENS[1], dev)
+        zero_k7()
+        got = pp.pipelined_forward(stack, x, mesh=cut_mesh, axis="stage",
+                                   apply_fn=fn, layers_per_stage=1)
+        torch.cuda.synchronize()
+        n_simt = kfa.flash_attention.launches_simt
+        want_simt = cut.n_layers * DENSE_CPU_TOKENS[0]
+        check(n_simt == want_simt == kfa.flash_attention.launches,
+              f"[lm pipeline cut] {kfa.flash_attention.launches} K7 "
+              f"launches ({n_simt} simt), expected {want_simt} simt")
+        check(torch.equal(got, pp.sequential_forward(stack, x, apply_fn=fn)),
+              "[lm pipeline cut] pipelined != sequential on the card")
+        cpu = torch.device("cpu")
+        want = pp.sequential_forward(
+            tf.tree_map(lambda a: a.cpu(), stack), x.cpu(),
+            apply_fn=layer_fn(cut, DENSE_CPU_TOKENS[1], cpu))
+    got = got.cpu()
+    err = float((got - want).abs().max())
+    check(bool(got.isfinite().all()) and torch.allclose(got, want,
+                                                        **DENSE_TOL),
+          f"[lm pipeline cut] card vs CPU: max |diff| {err:.3g}")
+    print(f"[lm pipeline cut] {DENSE_ARCH} cut to 2 layers, float32, "
+          f"{DENSE_CPU_TOKENS[0]} microbatches of (1, {DENSE_CPU_TOKENS[1]}) "
+          f"through 2 stages on the card == the CPU port's "
+          f"sequential_forward: max |diff| {err:.3g} (rtol = atol = "
+          f"{DENSE_TOL['atol']}); {n_simt} K7 launches, all simt (hd "
+          f"{cut.head_dim})")
+    del params, stack, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[lm pipeline] phase 9 wall {time.perf_counter() - t_phase:.1f} "
+          f"s; card: {card}")
+    return n_simt, n_tc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -4534,8 +4769,8 @@ def main() -> int:
     timed("5", fleet_phase, reference, tuned)
     timed("5b", multi_phase, reference, tuned)
     launches["binary_weight_matmul"] = timed("6", lm_phase)
-    launches["flash_attention"], launches["flash_attention_tc"] = timed(
-        "7", dense_phase)
+    launches["flash_attention"], launches["flash_attention_tc"], \
+        prefill_ms = timed("7", dense_phase)
     launches["flash_attention"] += timed("7b", moe_phase, dev)
     launches["flash_attention"] += timed("7c", recurrent_phase, dev)
     simt, tc = timed("7d", audio_phase, dev)
@@ -4543,6 +4778,9 @@ def main() -> int:
     launches["flash_attention_tc"] += tc
     timed("8", train_phase, dev)
     launches["flash_attention_tc"] += timed("8b", lm_train_phase, dev)
+    simt, tc = timed("9", lm_multi_phase, dev, prefill_ms)
+    launches["flash_attention"] += simt
+    launches["flash_attention_tc"] += tc
     print("[wall] " + ", ".join(f"{n} {t:.1f} s" for n, t in walls)
           + f"; total {sum(t for _, t in walls):.1f} s")
     kernels = []

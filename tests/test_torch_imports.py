@@ -66,7 +66,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.configs.whisper_medium",
             "repro_torch.serve.packing", "repro_torch.train.train_loop",
             "repro_torch.train.elastic",
-            "repro_torch.launch.train"} <= set(modules)
+            "repro_torch.launch.train", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun", "repro_torch.launch.dryrun_lib",
+            "repro_torch.launch.op_analysis", "repro_torch.parallel.act",
+            "repro_torch.parallel.sharding"} <= set(modules)
     code = (
         "import importlib, importlib.util, sys\n"
         f"for m in {modules!r}:\n"
