@@ -16,7 +16,8 @@ RoPE key per token shared by every head; the cache holds only
   q, k or v requiring grad: a training step) it takes that blockwise
   route on every device, as the reference trains off the TPU: K7 has no
   backward (its wrapper raises there). Prefill, serving and any forward
-  under ``torch.no_grad()`` stay on K7.
+  under ``torch.no_grad()`` stay on K7. It is traced as ``mla.attention``
+  with device marks (``repro_torch/trace.py``).
 * ``mla_decode_step`` is the absorbed form: ``W_uk`` folded into the
   query and ``W_uv`` into the output, so one token attends in the latent
   space, with the einsums in float32, as the reference does (no kernel
@@ -34,6 +35,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import autograd_records
 from repro_torch.models import layers
@@ -95,24 +97,28 @@ def mla_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     """Training / prefill attention (expanded K/V, no cache). x: (B, S, D).
     K7 through ``ops.flash_attention``, or under autograd the blockwise
     plain attention."""
-    b, s, _ = x.shape
-    h = cfg.n_heads
-    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    quant = _quant(cfg)
-    q_nope, q_rope = _queries(p, cfg, x, positions)
-    c_kv, k_rope = _latents(p, cfg, x, positions)
-    k_nope = layers.dense(p["wk_b"], c_kv, quant).reshape(b, s, h, dn)
-    v = layers.dense(p["wv_b"], c_kv, quant).reshape(b, s, h, dv)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
-    vp = F.pad(v, (0, dn + dr - dv))              # one head width for q, k, v
-    if autograd_records(q, k, vp):
-        out = blockwise_causal_attention(q, k, vp, causal=causal)
-    else:
-        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  vp.transpose(1, 2),
-                                  causal=causal).transpose(1, 2)
-    return layers.dense(p["wo"], out[..., :dv].reshape(b, s, h * dv), quant)
+    with trace.span("mla.attention", device=x.is_cuda):
+        b, s, _ = x.shape
+        h = cfg.n_heads
+        dn, dr, dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+        quant = _quant(cfg)
+        q_nope, q_rope = _queries(p, cfg, x, positions)
+        c_kv, k_rope = _latents(p, cfg, x, positions)
+        k_nope = layers.dense(p["wk_b"], c_kv, quant).reshape(b, s, h, dn)
+        v = layers.dense(p["wv_b"], c_kv, quant).reshape(b, s, h, dv)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
+                      dim=-1)
+        vp = F.pad(v, (0, dn + dr - dv))          # one head width for q, k, v
+        if autograd_records(q, k, vp):
+            out = blockwise_causal_attention(q, k, vp, causal=causal)
+        else:
+            out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                      vp.transpose(1, 2),
+                                      causal=causal).transpose(1, 2)
+        return layers.dense(p["wo"], out[..., :dv].reshape(b, s, h * dv),
+                            quant)
 
 
 class MLACache(NamedTuple):

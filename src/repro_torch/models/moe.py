@@ -16,12 +16,21 @@ outputs and sums them in a fixed order. The
 router runs in float32 on a float32 weight whatever the model's dtype;
 the experts carry the linear-layer technique (``cfg.quant``), the router
 does not. Every expert runs at every call, decode included.
+
+``moe_apply`` is traced (``repro_torch/trace.py``) in spans with device
+marks: ``moe.route`` (router and aux loss), ``moe.dispatch`` (sort,
+ranks, the writes into the capacity buffer), ``moe.experts`` (the routed
+experts), ``moe.combine`` (gather, gate, sum) and, where the layer has
+them, ``moe.experts`` again for the shared experts and their add, and
+counts the (token, choice) pairs in ``moe.pairs`` and those dropped at
+capacity in ``moe.pairs_dropped``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.models import layers
 
 CAPACITY_FACTOR = 1.25
@@ -93,43 +102,53 @@ def moe_apply(p: dict, cfg, x: torch.Tensor
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     quant = cfg.quant
-    probs, gate_vals, expert_idx = route(p, cfg, x)
+    marks = x.is_cuda
+    with trace.span("moe.route", device=marks):
+        probs, gate_vals, expert_idx = route(p, cfg, x)
 
-    # Switch-style load-balance loss over all tokens
-    me = probs.mean(dim=(0, 1))
-    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
-        0, expert_idx.reshape(-1),
-        torch.full((b * s * k,), 1.0 / (b * s * k), device=x.device))
-    aux = e * torch.sum(me * ce)
+        # Switch-style load-balance loss over all tokens
+        me = probs.mean(dim=(0, 1))
+        ce = torch.zeros((e,), dtype=torch.float32,
+                         device=x.device).index_add_(
+            0, expert_idx.reshape(-1),
+            torch.full((b * s * k,), 1.0 / (b * s * k), device=x.device))
+        aux = e * torch.sum(me * ce)
 
-    cap = capacity(s, e, k)
-    order, se, st, ok, slot = dispatch(expert_idx, cap)
-    rows = torch.arange(b, device=x.device)[:, None].expand(-1, s * k)
-    # the pairs within capacity have distinct (row, expert, slot) targets;
-    # a dropped pair goes to slot cap, which no expert reads (the
-    # reference adds zeros at cap - 1: the same buffer, without a
-    # scatter-add)
-    buf = torch.zeros((b, e, cap + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((rows, se, torch.where(ok, slot, cap)), x[rows, st])
+    with trace.span("moe.dispatch", device=marks):
+        cap = capacity(s, e, k)
+        order, se, st, ok, slot = dispatch(expert_idx, cap)
+        rows = torch.arange(b, device=x.device)[:, None].expand(-1, s * k)
+        # the pairs within capacity have distinct (row, expert, slot)
+        # targets; a dropped pair goes to slot cap, which no expert reads
+        # (the reference adds zeros at cap - 1: the same buffer, without a
+        # scatter-add)
+        buf = torch.zeros((b, e, cap + 1, d), dtype=x.dtype, device=x.device)
+        buf.index_put_((rows, se, torch.where(ok, slot, cap)), x[rows, st])
+    if trace.on():
+        trace.count("moe.pairs", b * s * k)
+        trace.count("moe.pairs_dropped", (~ok).sum())
 
-    # every expert's SwiGLU on its (B·cap, D) rows, batched over E
-    wi, wg, wo = (_wrap(p["experts"][k]) for k in ("wi", "wg", "wo"))
-    hb = buf[:, :, :cap].transpose(0, 1).reshape(e, b * cap, d)
-    g = F.silu(layers.dense(wg, hb, quant))
-    ob = layers.dense(wo, g * layers.dense(wi, hb, quant), quant)
-    out_buf = ob.reshape(e, b, cap, d).transpose(0, 1)          # (B,E,c,D)
+    with trace.span("moe.experts", device=marks):
+        # every expert's SwiGLU on its (B·cap, D) rows, batched over E
+        wi, wg, wo = (_wrap(p["experts"][k]) for k in ("wi", "wg", "wo"))
+        hb = buf[:, :, :cap].transpose(0, 1).reshape(e, b * cap, d)
+        g = F.silu(layers.dense(wg, hb, quant))
+        ob = layers.dense(wo, g * layers.dense(wi, hb, quant), quant)
+        out_buf = ob.reshape(e, b, cap, d).transpose(0, 1)      # (B,E,c,D)
 
-    # combine: each (token, choice) pair reads its expert's output at its
-    # slot, gated; a token's k choices are summed in float32
-    back = torch.empty_like(order).scatter_(
-        1, order, torch.arange(s * k, device=x.device).expand(b, -1))
-    ok, slot = torch.gather(ok, 1, back), torch.gather(slot, 1, back)
-    gathered = out_buf[rows, expert_idx.reshape(b, s * k), slot]
-    contrib = torch.where(ok[..., None], gathered.to(torch.float32)
-                          * gate_vals.reshape(b, s * k, 1), 0)
-    y = contrib.reshape(b, s, k, d).sum(dim=2).to(x.dtype)
+    with trace.span("moe.combine", device=marks):
+        # each (token, choice) pair reads its expert's output at its slot,
+        # gated; a token's k choices are summed in float32
+        back = torch.empty_like(order).scatter_(
+            1, order, torch.arange(s * k, device=x.device).expand(b, -1))
+        ok, slot = torch.gather(ok, 1, back), torch.gather(slot, 1, back)
+        gathered = out_buf[rows, expert_idx.reshape(b, s * k), slot]
+        contrib = torch.where(ok[..., None], gathered.to(torch.float32)
+                              * gate_vals.reshape(b, s * k, 1), 0)
+        y = contrib.reshape(b, s, k, d).sum(dim=2).to(x.dtype)
 
     if "shared" in p:
-        y = y + layers.mlp_apply(p["shared"], x, cfg.mlp_type,
-                                 quant).to(y.dtype)
+        with trace.span("moe.experts", device=marks):
+            y = y + layers.mlp_apply(p["shared"], x, cfg.mlp_type,
+                                     quant).to(y.dtype)
     return y.to(x.dtype), aux

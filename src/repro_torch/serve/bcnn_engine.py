@@ -53,6 +53,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import bcnn
 from repro_torch.core.execution_plan import build_plan, resolve_device
 from repro_torch.kernels import streams
@@ -223,20 +224,64 @@ class BCNNEngine:
 
     def step(self) -> dict[int, np.ndarray]:
         """One engine tick: admit from the queue, run the fixed-shape
-        forward, complete every occupied slot. Returns {rid: logits}."""
-        for i, req in self.sched.admit():
-            self._x_host[i] = torch.from_numpy(req.payload)
-        return self._flush()
+        forward, complete every occupied slot. Returns {rid: logits}.
 
-    def _flush(self) -> dict[int, np.ndarray]:
+        Traced (``trace.py``) as ``engine.step`` (its number, and the first
+        and last rid admitted: FIFO admission makes them contiguous) over
+        ``engine.admit`` and ``_flush``'s spans. The flag is read once a
+        step; off, the step runs no tracing code."""
+        if trace.on():
+            return self._step_traced()
+        self._admit()
+        return self._flush(False)
+
+    def _admit(self) -> list:
+        """The scheduler's FIFO admission, and the admitted images copied
+        into their host slots."""
+        admitted = self.sched.admit()
+        for i, req in admitted:
+            self._x_host[i] = torch.from_numpy(req.payload)
+        return admitted
+
+    def _step_traced(self) -> dict[int, np.ndarray]:
+        with trace.span("engine.step", step=self._steps) as sp:
+            with trace.span("engine.admit"):
+                admitted = self._admit()
+            if admitted:
+                sp.set(first_rid=admitted[0][1].rid,
+                       last_rid=admitted[-1][1].rid)
+            return self._flush(True)
+
+    def _flush(self, rec: bool | None = None) -> dict[int, np.ndarray]:
         """Run the forward over the slot buffer and complete every occupied
         slot (no admission — ``swap_packed`` uses this to drain in-flight
-        requests on the pre-swap weights)."""
-        if self.sched.n_occupied == 0:
+        requests on the pre-swap weights). Traced, where ``rec`` (read
+        from ``trace.on()`` if None) says so, as ``engine.launch`` (the
+        copy in, the replay and the copy of its output enqueued),
+        ``engine.wait`` (the host blocked until the logits are back) and
+        ``engine.complete``."""
+        occupied = self.sched.n_occupied
+        if occupied == 0:
             return {}
+        if rec is None:
+            rec = trace.on()
         with self.on_stream():
-            logits = self._forward().cpu().numpy()
+            if not rec:
+                logits = self._forward().cpu().numpy()
+            else:
+                with trace.span("engine.launch"):
+                    out = self._forward()
+                with trace.span("engine.wait"):
+                    logits = out.cpu().numpy()
         self._steps += 1
+        if not rec:
+            return self._complete(logits)
+        trace.count("engine.steps", 1)
+        trace.count("engine.slots_occupied", occupied)
+        with trace.span("engine.complete"):
+            return self._complete(logits)
+
+    def _complete(self, logits: np.ndarray) -> dict[int, np.ndarray]:
         results = {}
         for i, req in self.sched.occupied():
             self.sched.complete(i)
