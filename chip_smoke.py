@@ -110,13 +110,14 @@ Phases, each fatal on failure (nothing is caught):
    rule of ``MOE_ROUTE_MARGIN``; (b) the same at quant "binary_weights";
    (c) ``prefill`` against an 8-token prompt fed through the absorbed
    ``decode_step`` on the card; (d) the full 27-layer bf16 model's
-   ``prefill`` at (1, 4096) (27 K7 simt launches at hd 192), profiled,
+   ``prefill`` at (1, 4096) (27 K7 tc launches at q/k 192, v 128, and
+   none simt), profiled,
    with K7's share of the kernel time; (e) the same model served through
    ``ServingEngine`` at 4 slots (no K7 launch in decode; request 0 equal
    to a hand-rolled decode loop; a decode step profiled; a mid-run
    hot-swap keeping every weight's storage); (f) DeepSeek-V2's 236B
    config cut to 2 layers at full width, bf16, ``prefill`` at (1, 1024)
-   through K7 simt against the same cut with plain attention on the
+   through K7 tc against the same cut with plain attention on the
    card.
 7c. The vlm, ssm and hybrid families at full width
    (``configs/phi3_vision_4_2b.py``, ``rwkv6_3b.py``, ``zamba2_7b.py``):
@@ -222,34 +223,35 @@ Phases, each fatal on failure (nothing is caught):
    to the card's tree, its FLOPs beside phase 7's measured kernel ms, its
    resident + temp bytes beside a measured ``max_memory_allocated``.
 
-Phase 2 also holds K7 against its plain version at the dense LM's
-attention shape (B, Hq, Hkv, hd) = (1, 32, 8, 128), causal, S in {128,
-1000, 4096}, at the same heads with hd 32, 96, 112 and 192 at S = 4096,
-and at the ragged extras (2, 4, 2, 64) at S = 256, (1, 2, 1, 64) at S =
-200, both causal settings, (1, 4, 2, hd) at S = 300 for hd 32, 96, 112
-and 192, (1, 2, 1, 256) at S = 200 non-causal and (1, 2, 2, 33) at S = 65
-(rows the wrapper pads to 16 bytes), in float32 and bfloat16, and at
-DeepSeek-V2-Lite's MLA shape (1, 16, 16, 192) at S = 4096, causal
-(``FLASH_MLA``), phi-3-vision's (1, 32, 32, 96) at S = 4096 and 4672
-(576 patches + 4096 tokens) and zamba2's (1, 32, 32, 112) at S = 4096
-(``FLASH_VLM``, ``FLASH_VLM_RAGGED``, ``FLASH_HYBRID``), in bfloat16 only,
-and whisper-medium's encoder shape (1, 16, 16, 64) at S = 1500,
+Phase 2 also holds K7 against its plain version at the dense LM's attention
+shape (B, Hq, Hkv, hd) = (1, 32, 8, 128), causal, S in {128, 1000, 4096}, at
+the same heads with hd 32, 96, 112 and 192 at S = 4096, and at the ragged
+extras (2, 4, 2, 64) at S = 256, (1, 2, 1, 64) at S = 200, both causal
+settings, (1, 4, 2, hd) at S = 300 for hd 32, 96, 112 and 192, (1, 2, 1,
+256) at S = 200 non-causal and (1, 2, 2, 33) at S = 65 (rows the wrapper
+pads to 16 bytes), in float32 and bfloat16, and at DeepSeek-V2-Lite's MLA
+shape (1, 16, 16, 192) with v at 128 at S = 4096, causal, at (8, 16, 16,
+192) / 128 at S = 1024 and at (1, 4, 2, 192) / 128 at S = 300, both causal
+settings (``FLASH_MLA_CASES``), phi-3-vision's (1, 32, 32, 96) at S = 4096
+and 4672 (576 patches + 4096 tokens) and zamba2's (1, 32, 32, 112) at S =
+4096 (``FLASH_VLM``, ``FLASH_VLM_RAGGED``, ``FLASH_HYBRID``), in bfloat16
+only, and whisper-medium's encoder shape (1, 16, 16, 64) at S = 1500,
 non-causal (``FLASH_AUDIO``, both dtypes; in bf16 the last of the 128-row
-tiles is ragged) (tolerances ``FLASH_TOL``), each in the variant ``pick_variant`` chooses (printed
-from the launch counters): "tc" (``flash_attention_tc``, bf16 at hd 64 /
-128) on contiguous tensors and on the strided head-major views the model
-hands over, "simt" (``flash_attention``) on everything else. Before them
-it prints the "simt" plan of every hd bucket from the card
-(``kfa.simt_plan``: blocks an SM by the occupancy API, registers and
-local bytes a thread, shared bytes, KV tile) and requires 2 blocks an SM
-at hd <= 128 in float32; the build phase prints ptxas's line of every
-``flash_simt_kernel`` instantiation. It times every row against one
-``scaled_dot_product_attention`` call on the same inputs (a yardstick the
-port never calls); the kernels line takes each variant at S = 4096 in the
-dtype it serves there (tc bf16) and simt at ``FLASH_SIMT_PATH``. Then it
-runs "tc" at the reference's ``prefill_32k`` length (S = 32768, causal,
-bf16), which the plain version cannot hold (137 GB of scores), against
-SDPA's output at the bf16 tolerances.
+tiles is ragged) (tolerances ``FLASH_TOL``), each in the variant
+``pick_variant`` chooses (printed from the launch counters): "tc"
+(``flash_attention_tc``, bf16 at hd 64 / 128 and at MLA's 192 / 128) on
+contiguous tensors and on the strided head-major views the model hands over,
+"simt" (``flash_attention``) on everything else. Before them it prints the
+"simt" plan of every hd bucket from the card (``kfa.simt_plan``: blocks an
+SM by the occupancy API, registers and local bytes a thread, shared bytes,
+KV tile) and requires 2 blocks an SM at hd <= 128 in float32; the build
+phase prints ptxas's line of every ``flash_simt_kernel`` instantiation. It
+times every row against one ``scaled_dot_product_attention`` call on the
+same inputs (a yardstick the port never calls); the kernels line takes each
+variant at S = 4096 in the dtype it serves there (tc bf16) and simt at
+``FLASH_SIMT_PATH``. Then it runs "tc" at the reference's ``prefill_32k``
+length (S = 32768, causal, bf16), which the plain version cannot hold (137
+GB of scores), against SDPA's output at the bf16 tolerances.
 
 Phase 2 also holds K1/K2 bit-exact against their plain version at the
 LM's mode-"xnor" shapes (M = 4 per decode step and 16 for the probe,
@@ -422,11 +424,20 @@ FLASH_CASES += [(1, 2, 1, 256, 200, False), (1, 2, 2, 33, 65, True)]
 # prefill, card vs CPU (DENSE_CPU_TOKENS), timed for the kernels line
 FLASH_SIMT_PATH = (2, 32, 8, 128, 256, True)
 FLASH_CASES += [FLASH_SIMT_PATH]
-# the shape K7 simt runs in every layer of deepseek-v2-lite-16b's prefill at
-# S = 4096 (MLA: 16 query heads = 16 KV heads, hd = qk_nope + qk_rope =
-# 192 with v zero-padded to it), bf16 only, as the model serves it
+# the shape K7 tc runs in every layer of deepseek-v2-lite-16b's prefill at
+# S = 4096 (MLA: 16 query heads = 16 KV heads, q and k at qk_nope +
+# qk_rope = 192, v at v_head_dim = 128), bf16 only, as the model serves it;
+# the batch cell's (8, 16, 16) at S = 1024; and ragged S = 300 with GQA,
+# both causal settings (the last 128-row tile and 128-key tile ragged),
+# in both dtypes (float32 runs simt on v padded to 192). These rows run v
+# at FLASH_MLA_DV, every other row at hd.
 FLASH_MLA = (1, 16, 16, 192, FLASH_PATH_S, True)
-FLASH_CASES += [FLASH_MLA]
+FLASH_MLA_BATCH = (8, 16, 16, 192, 1024, True)
+FLASH_MLA_CASES = [FLASH_MLA, FLASH_MLA_BATCH] + [
+    (1, 4, 2, 192, 300, c) for c in (True, False)]
+FLASH_MLA_DV = 128
+# the "tc" row of the kernels line: the dense LM's prefill
+FLASH_TC_PATH = (1, 32, 8, 128, FLASH_PATH_S, True)
 # the shapes K7 simt runs on phase 7c's paths, bf16 only, as the models
 # serve them: every layer of phi-3-vision-4.2b's prefill (32 query heads =
 # 32 KV heads at hd 96) and every application of zamba2-7b's shared block
@@ -443,8 +454,8 @@ FLASH_CASES += [FLASH_VLM, FLASH_HYBRID, FLASH_VLM_RAGGED]
 FLASH_AUDIO = (1, 16, 16, 64, 1500, False)
 FLASH_CASES += [FLASH_AUDIO]
 FLASH_DTYPES = {c: (torch.bfloat16,)
-                for c in (FLASH_MLA, FLASH_VLM, FLASH_HYBRID,
-                          FLASH_VLM_RAGGED)}
+                for c in (FLASH_MLA, FLASH_MLA_BATCH, FLASH_VLM,
+                          FLASH_HYBRID, FLASH_VLM_RAGGED)}
 # the reference's prefill_32k length, one sequence: K7 tc vs SDPA
 FLASH_LONG = (1, 32, 8, 128, 32768, True)
 FLASH_NAMES = {"tc": "flash_attention_tc", "simt": "flash_attention"}
@@ -1152,17 +1163,19 @@ def bw_phase(g, dev, bound: Bound, st: dict) -> None:
           f"{real_err[torch.bfloat16]:.3g}")
 
 
-def flash_bound(b, hq, hkv, hd, s, causal, dtype):
-    """(bytes ms, operations ms) of one attention call: Q, K and V read
-    once, O written once, at the HBM rate; 4·B·Hq·hd FLOP per kept (query,
-    key) pair (S(S+1)/2 of them when causal) at the dense tensor-core rate
-    of bf16, or at the float32 CUDA-core rate (67 TFLOP/s) for float32."""
+def flash_bound(b, hq, hkv, hd, s, causal, dtype, dv=None):
+    """(bytes ms, operations ms) of one attention call with v (and O) at
+    width ``dv`` (default hd): Q, K and V read once, O written once, at the
+    HBM rate; 2·B·Hq·(hd + dv) FLOP per kept (query, key) pair (S(S+1)/2
+    of them when causal) at the dense tensor-core rate of bf16, or at the
+    float32 CUDA-core rate (67 TFLOP/s) for float32."""
+    dv = hd if dv is None else dv
     esize = 2 if dtype == torch.bfloat16 else 4
-    nbytes = (2 * b * hq + 2 * b * hkv) * s * hd * esize
+    nbytes = (b * hq + b * hkv) * s * (hd + dv) * esize
     kept = s * (s + 1) // 2 if causal else s * s
     rate = hw()["peak_flops"] if dtype == torch.bfloat16 else F32_FLOPS_PER_S
     return (nbytes / hw()["hbm_bw"] * 1e3,
-            4 * b * hq * hd * kept / rate * 1e3)
+            2 * b * hq * (hd + dv) * kept / rate * 1e3)
 
 
 def ulp_share(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1219,10 +1232,11 @@ def flash_phase(g, dev, stats: dict) -> None:
     chooses, read back from the launch counters. A "tc" row is held twice:
     on contiguous tensors, and on head-major views ``x.transpose(1, 2)``
     of (B, S, H, hd) tensors, the layout ``gqa_forward`` hands over, which
-    the kernel's tensor maps read in place. Times every row (on the views
+    the kernel's tensor maps read in place. v has width ``FLASH_MLA_DV``
+    on the ``FLASH_MLA_CASES`` rows, else hd. Times every row (on the views
     where the variant is "tc") beside the plain version and SDPA on the
-    same inputs; the kernels line takes "tc" at S = ``FLASH_PATH_S`` in
-    bf16 and "simt" at ``FLASH_SIMT_PATH`` in float32. Then "tc" at
+    same inputs; the kernels line takes "tc" at ``FLASH_TC_PATH`` in bf16
+    and "simt" at ``FLASH_SIMT_PATH`` in float32. Then "tc" at
     ``FLASH_LONG`` against SDPA's output, at the same tolerances. Uses no
     more of the package than the wrapper, its launch counters and the
     plain version, so it runs on an older checkout's ``src`` too."""
@@ -1230,23 +1244,28 @@ def flash_phase(g, dev, stats: dict) -> None:
     from repro_torch.kernels import ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    for b, hq, hkv, hd, s, causal in FLASH_CASES:
+    rows = ([(c, c[3]) for c in FLASH_CASES]
+            + [(c, FLASH_MLA_DV) for c in FLASH_MLA_CASES])
+    for (b, hq, hkv, hd, s, causal), dv in rows:
         for dt in FLASH_DTYPES.get((b, hq, hkv, hd, s, causal),
                                    (torch.float32, torch.bfloat16)):
-            picked = kfa.pick_variant(dt, hd)
+            picked = kfa.pick_variant(dt, hd, dv)
             name = FLASH_NAMES[picked]
-            case = (f"(B, Hq, Hkv, hd) = {(b, hq, hkv, hd)}, S = {s}, "
-                    f"causal = {causal}, {str(dt)[6:]}")
+            case = (f"(B, Hq, Hkv, hd) = {(b, hq, hkv, hd)}"
+                    + (f", v at {dv}" if dv != hd else "")
+                    + f", S = {s}, causal = {causal}, {str(dt)[6:]}")
             layouts = ["contiguous"] + (["views"] if picked == "tc" else [])
             for layout in layouts:
                 if layout == "views":
-                    q, k, v = (torch.randn((b, s, h, hd), generator=g).to(
-                        dev, dt).transpose(1, 2) for h in (hq, hkv, hkv))
+                    q, k, v = (torch.randn((b, s, h, w), generator=g).to(
+                        dev, dt).transpose(1, 2)
+                        for h, w in ((hq, hd), (hkv, hd), (hkv, dv)))
                     check(kfa.tma_ready(q) and not q.is_contiguous(),
                           f"K7 {case}: the views are not read in place")
                 else:
-                    q, k, v = (torch.randn((b, h, s, hd), generator=g).to(
-                        dev, dt) for h in (hq, hkv, hkv))
+                    q, k, v = (torch.randn((b, h, s, w), generator=g).to(
+                        dev, dt)
+                        for h, w in ((hq, hd), (hkv, hd), (hkv, dv)))
                 want = ref.flash_attention_ref(q, k, v, causal=causal)
                 n_tc = kfa.flash_attention.launches_tc
                 got = kfa.flash_attention(q, k, v, causal=causal)
@@ -1270,7 +1289,7 @@ def flash_phase(g, dev, stats: dict) -> None:
 
                 def run():
                     return kfa.flash_attention(q, k, v, causal=causal)
-                t_b, t_o = flash_bound(b, hq, hkv, hd, s, causal, dt)
+                t_b, t_o = flash_bound(b, hq, hkv, hd, s, causal, dt, dv)
                 d = device_ms(run)
                 plain_ms = device_ms(
                     lambda: ref.flash_attention_ref(q, k, v, causal=causal),
@@ -1281,9 +1300,8 @@ def flash_phase(g, dev, stats: dict) -> None:
                       f"{max(t_b, t_o):.4g} ms (bytes {t_b:.4g}, operations "
                       f"{t_o:.4g}), plain {plain_ms:.4g} ms, SDPA "
                       f"{lib_ms:.4g} ms")
-                if ((picked == "tc" and s == FLASH_PATH_S) or (
-                        picked == "simt"
-                        and (b, hq, hkv, hd, s, causal) == FLASH_SIMT_PATH)):
+                if (b, hq, hkv, hd, s, causal) == (
+                        FLASH_TC_PATH if picked == "tc" else FLASH_SIMT_PATH):
                     stats[name].update(
                         ms=d, call_ms=time_ms(run, reps=10),
                         plain_ms=plain_ms, library_ms=lib_ms, t_bytes=t_b,
@@ -2791,7 +2809,7 @@ def moe_cut_checks(full, rng, dev) -> None:
 def moe_big_cut(rng, dev) -> int:
     """(f): deepseek-v2-236b cut to 2 layers at full width (128 heads,
     q-LoRA 1536, 160 experts), bf16, ``prefill`` at ``MOE_BIG_PREFILL``
-    through K7 simt against the same cut with plain attention on the card.
+    through K7 tc against the same cut with plain attention on the card.
     The last position is compared where its experts, and whether each
     took it within capacity, are the same in both runs. Returns the K7
     launches."""
@@ -2812,8 +2830,8 @@ def moe_big_cut(rng, dev) -> int:
         got = tf.prefill(cut, params, toks)
         torch.cuda.synchronize()
     n_k7 = kfa.flash_attention.launches
-    check(n_k7 == cut.n_layers == kfa.flash_attention.launches_simt,
-          f"[moe 236b cut] {n_k7} K7 launches, expected {cut.n_layers} simt")
+    check(n_k7 == cut.n_layers == kfa.flash_attention.launches_tc,
+          f"[moe 236b cut] {n_k7} K7 launches, expected {cut.n_layers} tc")
     k7 = ops.flash_attention
     ops.flash_attention = ref.flash_attention_ref
     try:
@@ -2843,7 +2861,7 @@ def moe_big_cut(rng, dev) -> int:
           f"({cut.n_heads} heads, q-LoRA {cut.q_lora_rank}, "
           f"{cut.n_experts} experts), "
           f"bf16, {n_par:,} parameters, {dense_tree_bytes(params) / 1e9:.3f} "
-          f"GB; prefill {MOE_BIG_PREFILL} through K7 simt ({n_k7} launches) "
+          f"GB; prefill {MOE_BIG_PREFILL} through K7 tc ({n_k7} launches) "
           f"vs plain attention on the card: {msg}; {len(gaps)} of "
           f"{gi.shape[1]} tokens routed differently, all near-ties "
           f"(relative gaps below {MOE_BF16_ROUTE_MARGIN}, largest "
@@ -2857,8 +2875,8 @@ def moe_big_cut(rng, dev) -> int:
 
 def moe_phase(dev: torch.device) -> int:
     """Phase 7b: the moe family at full width on ``dev``. Returns the K7
-    launches of the full-depth Lite prefill (the main path's run) and the
-    236b cut."""
+    launches (all "tc") of the full-depth Lite prefill (the main path's
+    run) and the 236b cut."""
     import gc
 
     from repro_torch import configs
@@ -2906,21 +2924,25 @@ def moe_phase(dev: torch.device) -> int:
     logits = prefill()
     torch.cuda.synchronize()
     k7_launches = kfa.flash_attention.launches
-    check(k7_launches == full.n_layers == kfa.flash_attention.launches_simt,
+    check(k7_launches == full.n_layers == kfa.flash_attention.launches_tc
+          and kfa.flash_attention.launches_simt == 0,
           f"[moe prefill] {k7_launches} K7 launches "
-          f"({kfa.flash_attention.launches_simt} simt), expected "
-          f"{full.n_layers} simt")
+          f"({kfa.flash_attention.launches_tc} tc, "
+          f"{kfa.flash_attention.launches_simt} simt), expected "
+          f"{full.n_layers} tc and 0 simt")
     check(logits.shape == (1, 1, full.vocab_size)
           and bool(logits.isfinite().all()), "[moe prefill] logits "
           "malformed or not finite")
     print(f"[moe prefill] {DENSE_PREFILL}: logits finite, {k7_launches} K7 "
-          f"launches, all simt (hd {full.qk_nope_head_dim + full.qk_rope_head_dim}"
-          f"), peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"launches, all tc (q/k at "
+          f"{full.qk_nope_head_dim + full.qk_rope_head_dim}, v at "
+          f"{full.v_head_dim}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
           f"CUDA events {time_ms(prefill, reps=3, warmup=0):.2f} ms per "
           f"prefill")
     _, busy, _, rows = profile_call(prefill, 2, f"prefill {DENSE_PREFILL}")
-    k7_ms = sum(r[0] for r in rows if "flash_simt" in r[2])
-    print(f"  K7 simt: {k7_ms:.4f} ms of {busy:.4f} ms of kernels per "
+    k7_ms = sum(r[0] for r in rows if "flash_attention_tc" in r[2])
+    print(f"  K7 tc: {k7_ms:.4f} ms of {busy:.4f} ms of kernels per "
           f"prefill ({k7_ms / busy:.3f} of the kernel time)")
     del logits
 
@@ -4771,7 +4793,7 @@ def main() -> int:
     launches["binary_weight_matmul"] = timed("6", lm_phase)
     launches["flash_attention"], launches["flash_attention_tc"], \
         prefill_ms = timed("7", dense_phase)
-    launches["flash_attention"] += timed("7b", moe_phase, dev)
+    launches["flash_attention_tc"] += timed("7b", moe_phase, dev)
     launches["flash_attention"] += timed("7c", recurrent_phase, dev)
     simt, tc = timed("7d", audio_phase, dev)
     launches["flash_attention"] += simt

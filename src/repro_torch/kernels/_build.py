@@ -37,9 +37,9 @@ _PAIR_ARGS = [_P] * 8 + [_I] * 15 + [_P]
 _BW_ARGS = [_P] * 4 + [_I] * 4 + [_P]
 # q, k, v, out, B, Hq, Hkv, S, hd, causal, bf16, scale (float32), stream
 _FLASH_ARGS = [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P]
-# q, k, v, out, B, Hq, Hkv, S, hd, causal, scale (float32), the (batch,
-# head, row) element strides of q, k, v and out (int64), stream
-_FLASH_TC_ARGS = ([_P] * 4 + [_I] * 6 + [ctypes.c_float]
+# q, k, v, out, B, Hq, Hkv, S, hd, hd_v, causal, scale (float32), the
+# (batch, head, row) element strides of q, k, v and out (int64), stream
+_FLASH_TC_ARGS = ([_P] * 4 + [_I] * 7 + [ctypes.c_float]
                   + [ctypes.c_longlong] * 12 + [_P])
 SIGNATURES = {
     "xnor_matmul_vpu": _MATMUL_ARGS,

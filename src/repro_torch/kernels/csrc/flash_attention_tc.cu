@@ -1,16 +1,19 @@
 // Causal / non-causal GQA flash attention on Hopper's tensor cores
-// (sm_90a): kernel K7, variant "tc" (bf16, hd in {64, 128}).
+// (sm_90a): kernel K7, variant "tc" (bf16; query/key width HDQK, value
+// width HDV, (HDQK, HDV) in {(64, 64), (128, 128), (192, 128)}).
 //
-// Contract, as csrc/flash_attention.cu's header states it:
-//   q   (B, Hq, S, hd)  bfloat16, any strides with the last dimension
+// Contract, as csrc/flash_attention.cu's header states it, with the value
+// width apart from the query/key width (MLA's heads):
+//   q   (B, Hq, S, HDQK) bfloat16, any strides with the last dimension
 //       contiguous and the others multiples of 8 elements (a head-major
 //       view x.transpose(1, 2) of a (B, S, H, hd) tensor is taken as is);
-//   k,v (B, Hkv, S, hd) bfloat16, the same stride rule, Hq % Hkv == 0:
-//       query head h reads kv head h / (Hq / Hkv), without a copy;
-//   out (B, Hq, S, hd) bfloat16 at the strides the caller gives;
+//   k   (B, Hkv, S, HDQK), v (B, Hkv, S, HDV) bfloat16, the same stride
+//       rule, Hq % Hkv == 0: query head h reads kv head h / (Hq / Hkv),
+//       without a copy;
+//   out (B, Hq, S, HDV) bfloat16 at the strides the caller gives;
 //   out[q] = sum_k softmax_k(scale * q . k) v[k] over the keys k < S and,
-//   when causal, k <= q. Keys are masked at the true S: no padded key ever
-//   joins the softmax.
+//   when causal, k <= q, with scale = HDQK^-0.5. Keys are masked at the
+//   true S: no padded key ever joins the softmax.
 // Arithmetic: scores in float32 on the tensor cores; an online softmax
 // keeps a running max m and a rescaled sum l per row; p is rounded to bf16
 // (round to nearest even) before the PV product while l sums the
@@ -25,41 +28,47 @@
 // below 2^-126 is 0).
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention
-//   (_flash_kernel) for bf16 at hd 64 and 128; float32 and every other hd
+//   (_flash_kernel) for bf16 at those widths (the reference pads MLA's v to
+//   q's width; here v is read at its own); float32 and every other width
 //   keep the CUDA-core variant (kernels/flash_attention.py::pick_variant).
 // Bound on the H100: at (B, Hq, Hkv, hd) = (1, 32, 8, 128), S = 4096,
 //   causal, the 1.4e11 FLOP take 0.139 ms at the 989 TFLOP/s bf16
 //   tensor-core rate and the 84 MB of q, k, v and out 0.025 ms at
-//   3.35 TB/s: operations bound it, so both products run as wgmma.
+//   3.35 TB/s; MLA's (1, 16, 16, 192 / 128) at S = 4096 is 1.1e11 FLOP,
+//   0.111 ms: operations bound both, so both products run as wgmma.
 // Design: one block of three warpgroups per (b * Hq + h, 128 query rows),
 //   on a grid of (B * Hq, query tiles) with the heaviest (latest) query
 //   tiles first. Warpgroups 0 and 1 consume 64 query rows each; one thread
 //   of warpgroup 2 produces: it loads the block's Q tile once and the
-//   128-key K and V tiles through a ring of STAGES buffers, all by TMA
-//   (4-D tensor maps over (hd, S, H, B) with the caller's strides, 128-byte
-//   swizzle, rows past S filled with zeros), each buffer guarded by a
-//   "full" mbarrier (TMA transaction bytes) and an "empty" one (every
-//   consumer thread arrives after its PV product). Per KV tile t a
-//   consumer warpgroup queues S = Q K^T (m64n128k16 wgmma from shared
-//   memory) and, behind it, O += P V of tile t - 1 (m64n{hd}k16 wgmma, A =
-//   p in registers, V read MN-major through the transpose bit); once S is
-//   in, it masks (only the diagonal tile and a ragged last tile carry a
+//   128-key K and V tiles through a ring of `stages` buffers, all by TMA
+//   (4-D tensor maps over (width, S, H, B) with the caller's strides,
+//   128-byte swizzle, rows past S filled with zeros). K and V of a buffer
+//   each have a "full" mbarrier (TMA transaction bytes) and an "empty" one:
+//   every consumer warp frees K once its QK^T product is in and V once its
+//   PV product is (one lane arrives for the warp), so the next K load starts
+//   a whole tile before the V beside it is free. Per KV tile t a consumer
+//   warpgroup queues S = Q K^T (m64n128k16 wgmma from shared memory, HDQK /
+//   16 k-slices) and, behind it, O += P V of tile t - 1 (m64n{HDV}k16 wgmma,
+//   A = p in registers, V read MN-major through the transpose bit); once S
+//   is in, it masks (only the diagonal tile and a ragged last tile carry a
 //   mask) and runs the online softmax in the accumulator registers (a row
 //   lives in one quad of lanes) while that PV product runs, then rescales O
-//   and packs p to bf16 pairs in registers: the m64 float32 accumulator of
-//   S is laid out as the A fragment of the PV product, so p never touches
-//   shared memory. 128-key tiles halve the per-tile work that does not
-//   scale with the keys (barrier waits, row reductions, the rescale of O)
-//   against 64-key ones. Staging is bf16: at hd = 128, Q takes 32 KB and
-//   each of the 3 stages 64 KB, 230,456 bytes in all (tc_smem_bytes in
-//   kernels/flash_attention.py mirrors the count). The causal loop stops
-//   at each warpgroup's own diagonal tile. One block holds an SM: its 384
-//   threads start at 168 registers, which fill the SM's 65,536, and
-//   setmaxnreg moves them to the consumers (240 each; the producer keeps
-//   24) for S, p and O in registers (64 + 32 + 64 per thread at hd = 128).
-//   A barrier wait that has not completed after 60 s traps instead of
-//   hanging the card (a deadlock; no legitimate wait comes near that);
-//   the trap leaves the process's CUDA context unusable.
+//   and packs p to bf16 pairs in registers: the m64 float32 accumulator of S
+//   is laid out as the A fragment of the PV product, so p never touches
+//   shared memory. 128-key tiles halve the per-tile work that does not scale
+//   with the keys (barrier waits, row reductions, the rescale of O) against
+//   64-key ones. Staging is bf16; the ring is as deep as the 227
+//   KB of a block allow, at most 3 (tc_stages): at (128, 128) Q takes
+//   32 KB and each of 3 stages 64 KB, 230,504 bytes in all; at (192, 128)
+//   Q takes 48 KB and each of 2 stages 80 KB, 214,088 bytes
+//   (tests/test_torch_flash.py recounts them from this file). The
+//   causal loop stops at each warpgroup's own diagonal tile. One block
+//   holds an SM: its 384 threads start at 168 registers, which fill the
+//   SM's 65,536, and setmaxnreg moves them to the consumers (240 each; the
+//   producer keeps 24) for S, p and O in registers (64 + 32 + HDV / 2 per
+//   thread). A barrier wait that has not completed after 60 s traps
+//   instead of hanging the card (a deadlock; no legitimate wait comes near
+//   that); the trap leaves the process's CUDA context unusable.
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -69,19 +78,38 @@ namespace {
 
 constexpr int TC_BM = 128;          // query rows per block (2 warpgroups)
 constexpr int TC_BN = 128;          // keys per KV tile
-constexpr int TC_STAGES = 3;        // K/V ring depth
+constexpr int TC_MAX_STAGES = 3;    // K/V ring depth where it fits
 constexpr int TC_THREADS = 384;     // 2 consumer warpgroups + 1 producer
 constexpr int TC_ROW_BYTES = 128;   // one 64-column bf16 swizzle atom row
+constexpr int TC_SMEM_LIMIT = 232448;   // H100: opt-in shared memory a block
 
-// Shared-memory bytes of one block (kernels/flash_attention.py::
-// tc_smem_bytes mirrors this): 1 KB of alignment slack, the Q tile, the
-// K/V ring and 1 + 2 * STAGES mbarriers.
-constexpr int tc_smem_bytes(int hd) {
-  return 1024 + TC_BM * hd * 2 + TC_STAGES * 2 * TC_BN * hd * 2
-         + 8 * (1 + 2 * TC_STAGES);
+// Shared-memory bytes of one block with a ring of `stages`: 1 KB of
+// alignment slack, the Q tile, the K/V ring and 1 + 4 * stages mbarriers
+// (Q; full and empty of each K and each V buffer).
+__host__ __device__ constexpr int tc_smem_bytes(int hdqk, int hdv,
+                                                int stages) {
+  return 1024 + TC_BM * hdqk * 2 + stages * TC_BN * (hdqk + hdv) * 2
+         + 8 * (1 + 4 * stages);
 }
-static_assert(tc_smem_bytes(64) <= 232448, "hd 64 tiles exceed 227 KB");
-static_assert(tc_smem_bytes(128) <= 232448, "hd 128 tiles exceed 227 KB");
+// The ring's depth at (hdqk, hdv): TC_MAX_STAGES where that fits a block,
+// else one less (the Q tile and K grow with hdqk; 3 stages at 192 / 128
+// would take 295,992 bytes).
+__host__ __device__ constexpr int tc_stages(int hdqk, int hdv) {
+  return tc_smem_bytes(hdqk, hdv, TC_MAX_STAGES) <= TC_SMEM_LIMIT
+             ? TC_MAX_STAGES : TC_MAX_STAGES - 1;
+}
+static_assert(tc_stages(64, 64) == 3 && tc_stages(128, 128) == 3
+              && tc_stages(192, 128) == 2, "ring depths changed");
+
+// The (HDQK, HDV) instantiations, the one list that the entry point's shape
+// check and dispatch expand (kernels/flash_attention.py::TC_SHAPES names
+// the same pairs).
+#define TC_SHAPES(X) X(64, 64) X(128, 128) X(192, 128)
+#define TC_FITS(HDQK, HDV)                                                \
+  static_assert(tc_smem_bytes(HDQK, HDV, tc_stages(HDQK, HDV))           \
+                    <= TC_SMEM_LIMIT, "tiles exceed 227 KB");
+TC_SHAPES(TC_FITS)
+#undef TC_FITS
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -277,13 +305,13 @@ __device__ __forceinline__ int tiles_for(int row0, int S, int causal) {
   return causal ? min(all, (row0 + 64 + TC_BN - 1) / TC_BN) : all;
 }
 
-// S = Q K^T of one tile: hd / 16 k-slices, 32 bytes apart inside a
+// S = Q K^T of one tile: HDQK / 16 k-slices, 32 bytes apart inside a
 // 64-column swizzle atom, the atoms TC_BM (Q) or TC_BN (K) rows apart.
-template <int HD>
+template <int HDQK>
 __device__ __forceinline__ void issue_qk(float (&sc)[TC_BN / 2],
                                          uint32_t q_wg, uint32_t k_s) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < HDQK / 16; ++kk) {
     const uint32_t off = (kk & 3) * 32;
     wgmma_ss_n128(
         sc, make_desc(q_wg + (kk >> 2) * TC_BM * TC_ROW_BYTES + off, 16, 1024),
@@ -296,15 +324,15 @@ __device__ __forceinline__ void issue_qk(float (&sc)[TC_BN / 2],
 // product: a k-slice is 16 keys (2048 bytes), the 64-column atoms of d lie
 // TC_BN rows apart (leading byte offset), 8-key groups 1024 bytes apart
 // (stride byte offset).
-template <int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+template <int HDV>
+__device__ __forceinline__ void issue_pv(float (&o)[HDV / 2],
                                          const uint32_t (&pa)[TC_BN / 16][4],
                                          uint32_t v_s) {
 #pragma unroll
   for (int kk = 0; kk < TC_BN / 16; ++kk) {
     const uint64_t dv = make_desc(v_s + kk * 16 * TC_ROW_BYTES,
                                   TC_BN * TC_ROW_BYTES, 1024);
-    if constexpr (HD == 64) {
+    if constexpr (HDV == 64) {
       wgmma_rs_n64(o, pa[kk], dv);
     } else {
       wgmma_rs_n128(o, pa[kk], dv);
@@ -387,7 +415,7 @@ struct Rows {
   }
 };
 
-template <int HD>
+template <int HDQK, int HDV>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -395,16 +423,22 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           __nv_bfloat16* __restrict__ out, long long osb,
                           long long osh, long long oss, int S, int Hq,
                           int group, int causal, float scale_log2) {
-  constexpr int NC = HD / 64;                    // 64-column swizzle atoms
-  constexpr int Q_BYTES = TC_BM * HD * 2;
-  constexpr int KV_BYTES = TC_BN * HD * 2;       // one K or V tile
+  constexpr int STAGES = tc_stages(HDQK, HDV);
+  constexpr int NCQ = HDQK / 64;                 // 64-column swizzle atoms
+  constexpr int NCV = HDV / 64;
+  constexpr int Q_BYTES = TC_BM * HDQK * 2;
+  constexpr int K_BYTES = TC_BN * HDQK * 2;      // one K tile
+  constexpr int V_BYTES = TC_BN * HDV * 2;       // one V tile
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q_s = base;                     // [NC][TC_BM][64]
-  const uint32_t kv_s = base + Q_BYTES;  // [STAGES][K, V][NC][TC_BN][64]
-  const uint32_t bars = kv_s + TC_STAGES * 2 * KV_BYTES;
+  const uint32_t q_s = base;                     // [NCQ][TC_BM][64]
+  // [STAGES][K [NCQ][TC_BN][64], V [NCV][TC_BN][64]]
+  const uint32_t kv_s = base + Q_BYTES;
+  const uint32_t bars = kv_s + STAGES * (K_BYTES + V_BYTES);
   const uint32_t q_full = bars;
-  // full[s] = bars + 8 (1 + s); empty[s] = bars + 8 (1 + STAGES + s)
+  // mbarrier i of buffer s: bars + 8 (1 + i * STAGES + s), i = 0 K full,
+  // 1 V full, 2 K empty, 3 V empty
+  auto bar = [&](int i, int s) { return bars + 8 * (1 + i * STAGES + s); };
 
   const int bh = blockIdx.x;                     // b * Hq + h
   const int b = bh / Hq, h = bh - b * Hq;
@@ -417,9 +451,11 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (tid == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < TC_STAGES; ++s) {
-      mbar_init(bars + 8 * (1 + s), 1);
-      mbar_init(bars + 8 * (1 + TC_STAGES + s), two ? 256 : 128);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar(0, s), 1);
+      mbar_init(bar(1, s), 1);
+      mbar_init(bar(2, s), two ? 8 : 4);         // one lane a consumer warp
+      mbar_init(bar(3, s), two ? 8 : 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -432,25 +468,26 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if (tid == 256) {
       mbar_expect_tx(q_full, Q_BYTES);
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
+      for (int c = 0; c < NCQ; ++c)
         tma_load_4d(q_s + c * TC_BM * TC_ROW_BYTES, &tq, q_full, 64 * c, q0,
                     h, b);
       for (int t = 0; t < n_kt; ++t) {
-        const int s = t % TC_STAGES;
-        const uint32_t full = bars + 8 * (1 + s);
-        if (t >= TC_STAGES)
-          mbar_wait(bars + 8 * (1 + TC_STAGES + s),
-                    ((t / TC_STAGES) - 1) & 1);
-        mbar_expect_tx(full, 2 * KV_BYTES);
-        const uint32_t k_dst = kv_s + s * 2 * KV_BYTES;
-        const uint32_t v_dst = k_dst + KV_BYTES;
+        const int s = t % STAGES;
+        const uint32_t parity = ((t / STAGES) - 1) & 1;
+        const uint32_t k_dst = kv_s + s * (K_BYTES + V_BYTES);
+        const uint32_t v_dst = k_dst + K_BYTES;
+        if (t >= STAGES) mbar_wait(bar(2, s), parity);
+        mbar_expect_tx(bar(0, s), K_BYTES);
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          tma_load_4d(k_dst + c * TC_BN * TC_ROW_BYTES, &tk, full, 64 * c,
-                      t * TC_BN, kvh, b);
-          tma_load_4d(v_dst + c * TC_BN * TC_ROW_BYTES, &tv, full, 64 * c,
-                      t * TC_BN, kvh, b);
-        }
+        for (int c = 0; c < NCQ; ++c)
+          tma_load_4d(k_dst + c * TC_BN * TC_ROW_BYTES, &tk, bar(0, s),
+                      64 * c, t * TC_BN, kvh, b);
+        if (t >= STAGES) mbar_wait(bar(3, s), parity);
+        mbar_expect_tx(bar(1, s), V_BYTES);
+#pragma unroll
+        for (int c = 0; c < NCV; ++c)
+          tma_load_4d(v_dst + c * TC_BN * TC_ROW_BYTES, &tv, bar(1, s),
+                      64 * c, t * TC_BN, kvh, b);
       }
     }
   } else {
@@ -464,18 +501,23 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     Rows st;
     st.quad = lane & 3;
     st.ra = row0 + 16 * ((tid >> 5) & 3) + (lane >> 2);   // and ra + 8
-    float o[HD / 2];
+    float o[HDV / 2];
     float sc[TC_BN / 2];    // S of the newest tile, then its float32 p
     uint32_t pa[TC_BN / 16][4];   // bf16 p of the tile whose PV is queued
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < HDV / 2; ++i) o[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < TC_BN / 2; ++i) sc[i] = 0.f;
     const uint32_t q_wg = q_s + wg * 64 * TC_ROW_BYTES;
-    auto k_tile = [&](int t) { return kv_s + (t % TC_STAGES) * 2 * KV_BYTES; };
-    auto full = [&](int t) { return bars + 8 * (1 + t % TC_STAGES); };
-    auto empty = [&](int t) {
-      return bars + 8 * (1 + TC_STAGES + t % TC_STAGES);
+    auto k_tile = [&](int t) {
+      return kv_s + (t % STAGES) * (K_BYTES + V_BYTES);
+    };
+    auto parity = [&](int t) { return static_cast<uint32_t>(t / STAGES) & 1; };
+    // a warp frees a buffer once its wgmma reads of it are done: one lane
+    // arrives for the warp
+    auto release = [&](uint32_t b) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(b);
     };
     auto masked = [&](int t) {    // only the diagonal and a ragged tile
       const int k0 = t * TC_BN;
@@ -484,35 +526,38 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(q_full, 0);
 
     // tile 0: S, then its softmax (O is still 0, so no rescale)
-    mbar_wait(full(0), 0);
+    mbar_wait(bar(0, 0), 0);
     fence_regs(sc);
     wgmma_fence();
-    issue_qk<HD>(sc, q_wg, k_tile(0));
+    issue_qk<HDQK>(sc, q_wg, k_tile(0));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
+    release(bar(2, 0));
     st.softmax(sc, 0, masked(0), S, causal, scale_log2);
     pack_p(sc, pa);
 
     // steady state: S of tile t runs beside PV of tile t - 1; the softmax
     // of tile t overlaps that PV, then O is rescaled once the PV is done
     for (int t = 1; t < n_w; ++t) {
-      mbar_wait(full(t), (t / TC_STAGES) & 1);
+      mbar_wait(bar(0, t % STAGES), parity(t));
+      mbar_wait(bar(1, (t - 1) % STAGES), parity(t - 1));
       fence_regs(sc);
       fence_regs(o);
       wgmma_fence();
-      issue_qk<HD>(sc, q_wg, k_tile(t));
+      issue_qk<HDQK>(sc, q_wg, k_tile(t));
       wgmma_commit();
-      issue_pv<HD>(o, pa, k_tile(t - 1) + KV_BYTES);
+      issue_pv<HDV>(o, pa, k_tile(t - 1) + K_BYTES);
       wgmma_commit();
       wgmma_wait<1>();                      // S of tile t is ready
       fence_regs(sc);
+      release(bar(2, t % STAGES));          // K of tile t is free
       st.softmax(sc, t * TC_BN, masked(t), S, causal, scale_log2);
       wgmma_wait<0>();                      // PV of tile t - 1 is done
       fence_regs(o);
-      mbar_arrive(empty(t - 1));
+      release(bar(3, (t - 1) % STAGES));    // V of tile t - 1 is free
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < HDV / 8; ++j) {
         o[4 * j] *= st.corr_a;
         o[4 * j + 1] *= st.corr_a;
         o[4 * j + 2] *= st.corr_b;
@@ -520,13 +565,14 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       }
       pack_p(sc, pa);
     }
+    mbar_wait(bar(1, (n_w - 1) % STAGES), parity(n_w - 1));
     fence_regs(o);
     wgmma_fence();
-    issue_pv<HD>(o, pa, k_tile(n_w - 1) + KV_BYTES);
+    issue_pv<HDV>(o, pa, k_tile(n_w - 1) + K_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
-    mbar_arrive(empty(n_w - 1));
+    release(bar(3, (n_w - 1) % STAGES));
 
     // epilogue: l over the quad, out = acc / max(l, 1e-30) in bf16
 #pragma unroll
@@ -540,14 +586,14 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if (ra < S) {
       __nv_bfloat16* row = dst + ra * oss;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
+      for (int j = 0; j < HDV / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
             __floats2bfloat162_rn(o[4 * j] / den_a, o[4 * j + 1] / den_a);
     }
     if (ra + 8 < S) {
       __nv_bfloat16* row = dst + (ra + 8) * oss;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
+      for (int j = 0; j < HDV / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
             __floats2bfloat162_rn(o[4 * j + 2] / den_b, o[4 * j + 3] / den_b);
     }
@@ -602,21 +648,21 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int hd,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 int launch_tc(const CUtensorMap& mq, const CUtensorMap& mk,
               const CUtensorMap& mv, void* out, long long osb, long long osh,
               long long oss, int B, int Hq, int Hkv, int S, int causal,
               float scale_log2, cudaStream_t stream) {
-  const int smem = tc_smem_bytes(HD);
+  const int smem = tc_smem_bytes(HDQK, HDV, tc_stages(HDQK, HDV));
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_tc_kernel<HD>,
+      flash_attention_tc_kernel<HDQK, HDV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return static_cast<int>(err);
   }
   const dim3 grid(B * Hq, (S + TC_BM - 1) / TC_BM);
-  flash_attention_tc_kernel<HD><<<grid, TC_THREADS, smem, stream>>>(
+  flash_attention_tc_kernel<HDQK, HDV><<<grid, TC_THREADS, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), osb, osh, oss, S, Hq,
       Hq / Hkv, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
@@ -627,35 +673,41 @@ int launch_tc(const CUtensorMap& mq, const CUtensorMap& mk,
 extern "C" {
 
 // Enqueues one K7 "tc" launch on `stream`; returns the CUDA error code (0
-// on success; cudaErrorInvalidValue for an hd other than 64 / 128 or a
-// tensor map the driver refuses, cudaErrorNotSupported without the
-// driver's cuTensorMapEncodeTiled). q, k, v and out are bfloat16 with
-// element strides (batch, head, row) and a contiguous last dimension. The
-// wrapper (kernels/flash_attention.py) checks shapes, strides (multiples
-// of 8 elements), 16-byte alignment and the grid's limits.
+// on success; cudaErrorInvalidValue for a (hd, hd_v) other than (64, 64),
+// (128, 128) or (192, 128), or a tensor map the driver refuses,
+// cudaErrorNotSupported without the driver's cuTensorMapEncodeTiled). q
+// and k are (.., hd), v and out (.., hd_v), all bfloat16 with element
+// strides (batch, head, row) and a contiguous last dimension; `scale` is
+// hd^-0.5. The wrapper (kernels/flash_attention.py) checks shapes, strides
+// (multiples of 8 elements), 16-byte alignment and the grid's limits.
 int flash_attention_tc(const void* q, const void* k, const void* v,
                        void* out, int B, int Hq, int Hkv, int S, int hd,
-                       int causal, float scale, long long qsb, long long qsh,
-                       long long qss, long long ksb, long long ksh,
-                       long long kss, long long vsb, long long vsh,
-                       long long vss, long long osb, long long osh,
-                       long long oss, void* stream) {
-  if (hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
+                       int hd_v, int causal, float scale, long long qsb,
+                       long long qsh, long long qss, long long ksb,
+                       long long ksh, long long kss, long long vsb,
+                       long long vsh, long long vss, long long osb,
+                       long long osh, long long oss, void* stream) {
+#define TC_IS(HDQK, HDV) || (hd == HDQK && hd_v == HDV)
+  if (!(false TC_SHAPES(TC_IS)))
+    return static_cast<int>(cudaErrorInvalidValue);
+#undef TC_IS
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap mq, mk, mv;
   if (!make_map(encode, &mq, q, hd, S, Hq, B, qsb, qsh, qss, TC_BM)
       || !make_map(encode, &mk, k, hd, S, Hkv, B, ksb, ksh, kss, TC_BN)
-      || !make_map(encode, &mv, v, hd, S, Hkv, B, vsb, vsh, vss, TC_BN))
+      || !make_map(encode, &mv, v, hd_v, S, Hkv, B, vsb, vsh, vss, TC_BN))
     return static_cast<int>(cudaErrorInvalidValue);
   const float scale_log2 = static_cast<float>(
       static_cast<double>(scale) * 1.4426950408889634);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd == 64)
-    return launch_tc<64>(mq, mk, mv, out, osb, osh, oss, B, Hq, Hkv, S,
-                         causal, scale_log2, s);
-  return launch_tc<128>(mq, mk, mv, out, osb, osh, oss, B, Hq, Hkv, S, causal,
-                        scale_log2, s);
+#define TC_RUN(HDQK, HDV)                                                 \
+  if (hd == HDQK && hd_v == HDV)                                          \
+    return launch_tc<HDQK, HDV>(mq, mk, mv, out, osb, osh, oss, B, Hq, Hkv, \
+                                S, causal, scale_log2, s);
+  TC_SHAPES(TC_RUN)
+#undef TC_RUN
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -2,20 +2,24 @@
 
 ``flash_attention`` (K7) replaces ``repro/kernels/flash_attention.py::
 flash_attention``: causal or non-causal GQA softmax attention with an
-online softmax, over head-major (B, Hq, S, hd) queries and (B, Hkv, S, hd)
-keys and values, float32 or bfloat16, hd <= 256. Keys are masked at the
-true S, so no input is padded. ``pick_variant`` chooses the kernel from
-(dtype, hd) alone:
+online softmax, over head-major (B, Hq, S, hd) queries and keys (B, Hkv,
+S, hd) and values (B, Hkv, S, dv), dv <= hd (MLA's value heads are
+narrower than its query/key heads), float32 or bfloat16, hd <= 256. Keys
+are masked at the true S, so no input is padded. ``pick_variant`` chooses
+the kernel from (dtype, hd, dv) alone:
 
-* "tc" (``csrc/flash_attention_tc.cu``): bf16 at hd 64 or 128, on the
-  tensor cores (wgmma, TMA loads). It reads strided head-major views in
-  place (the last dimension contiguous, the other strides multiples of 8
-  elements, 16-byte aligned; ``tma_ready``), copies any other input, and
-  returns a (B, Hq, S, hd) view of a
-  (B, S, Hq, hd) buffer, the layout the model's output projection reads.
-* "simt" (``csrc/flash_attention.cu``): float32 at every hd, and bf16 at
-  the other hd, on the CUDA cores (float32 stays off the tensor cores:
-  TF32 would break the float32 card-vs-CPU check of the full-width model).
+* "tc" (``csrc/flash_attention_tc.cu``): bf16 at (hd, dv) = (64, 64),
+  (128, 128) or (192, 128) (``TC_SHAPES``), on the tensor cores (wgmma,
+  TMA loads). It reads strided head-major views in place (the last
+  dimension contiguous, the other strides multiples of 8 elements,
+  16-byte aligned; ``tma_ready``), copies any other input, and returns a
+  (B, Hq, S, dv) view of a (B, S, Hq, dv) buffer, the layout the model's
+  output projection reads.
+* "simt" (``csrc/flash_attention.cu``): float32 at every width, and bf16
+  at the other widths, on the CUDA cores (float32 stays off the tensor
+  cores: TF32 would break the float32 card-vs-CPU check of the full-width
+  model). It runs v at q's width: the wrapper pads v with zero columns to
+  hd and returns the first dv columns.
   hd is a template constant per bucket (``SIMT_HEAD_DIMS``; a smaller hd
   runs in the next bucket); each warp owns 16 query rows of a 64-row
   tile, each lane a 4 x TK/8 register tile of scores and 4 rows x hd/8
@@ -50,37 +54,34 @@ from repro_torch.kernels.xnor_matmul import aligned16
 
 MAX_HEAD_DIM = 256
 MAX_GRID_Y = 65535          # query tiles, grid y of both variants
-TC_HEAD_DIMS = (64, 128)
+# (hd, dv) of the "tc" instantiations
+TC_SHAPES = ((64, 64), (128, 128), (192, 128))
 SMEM_PER_BLOCK = 232448     # H100: opt-in shared memory per block (227 KB)
 SMEM_PER_SM = 233472        # H100: shared memory of an SM (228 KB) ...
 SMEM_RESERVED = 1024        # ... of which the runtime keeps 1 KB a block
 # Mirrors of csrc/flash_attention_tc.cu: query rows per block, keys per KV
-# tile, depth of the K/V ring
-TC_BM, TC_BN, TC_STAGES = 128, 128, 3
+# tile
+TC_BM, TC_BN = 128, 128
 # Mirrors of csrc/flash_attention.cu: query rows per block, depth of the
 # K/V ring, floats of padding per p row, the hd buckets
 SIMT_TQ, SIMT_STAGES, SIMT_PPAD = 64, 2, 8
 SIMT_HEAD_DIMS = (64, 96, 112, 128, 192, 256)
 
 
-def pick_variant(dtype: torch.dtype, hd: int) -> str:
-    """The K7 variant for (dtype, hd): "tc" for bfloat16 at hd 64 or 128,
-    "simt" for float32 at any hd and bfloat16 at any other hd <= 256.
+def pick_variant(dtype: torch.dtype, hd: int, hd_v: int | None = None
+                 ) -> str:
+    """The K7 variant for (dtype, hd, hd_v), hd_v (v's width) defaulting
+    to hd: "tc" for bfloat16 at ``TC_SHAPES``, "simt" for float32 at any
+    widths and bfloat16 at any others with 1 <= hd_v <= hd <= 256.
     Raises ValueError outside K7's contract."""
+    hd_v = hd if hd_v is None else hd_v
     if dtype not in (torch.float32, torch.bfloat16) or not (
-            1 <= hd <= MAX_HEAD_DIM):
-        raise ValueError(f"K7 takes float32 or bfloat16 at 1 <= hd <= "
-                         f"{MAX_HEAD_DIM}, got {dtype} at hd {hd}")
-    return "tc" if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS else "simt"
-
-
-def tc_smem_bytes(hd: int) -> int:
-    """Shared-memory bytes of one "tc" block (``tc_smem_bytes`` in
-    csrc/flash_attention_tc.cu): 1 KB of alignment slack, the bf16 Q tile
-    (TC_BM x hd), the K/V ring (TC_STAGES x 2 x TC_BN x hd) and
-    1 + 2 x TC_STAGES mbarriers of 8 bytes."""
-    return (1024 + TC_BM * hd * 2 + TC_STAGES * 2 * TC_BN * hd * 2
-            + 8 * (1 + 2 * TC_STAGES))
+            1 <= hd_v <= hd <= MAX_HEAD_DIM):
+        raise ValueError(f"K7 takes float32 or bfloat16 at 1 <= hd_v <= hd "
+                         f"<= {MAX_HEAD_DIM}, got {dtype} at hd {hd}, hd_v "
+                         f"{hd_v}")
+    return ("tc" if dtype == torch.bfloat16 and (hd, hd_v) in TC_SHAPES
+            else "simt")
 
 
 def simt_bucket(hd: int) -> int:
@@ -158,19 +159,21 @@ def _map_strides(t: torch.Tensor) -> list[int]:
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """The shapes and dtypes that K7 and its plain version take: 4-D q
-    (B, Hq, S, hd) and k, v (B, Hkv, S, hd), Hq % Hkv == 0, one dtype
-    (float32 or bfloat16), S >= 1 and hd <= 256. Raises ValueError."""
+    (B, Hq, S, hd), k (B, Hkv, S, hd) and v (B, Hkv, S, dv) with
+    1 <= dv <= hd, Hq % Hkv == 0, one dtype (float32 or bfloat16), S >= 1
+    and hd <= 256. Raises ValueError."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(f"q, k and v must be 4-D (B, H, S, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, hq, s, hd = q.shape
     hkv = k.shape[1]
-    if (tuple(k.shape) != (b, hkv, s, hd) or tuple(v.shape) != tuple(k.shape)
-            or hkv == 0 or hq % hkv):
+    if (tuple(k.shape) != (b, hkv, s, hd)
+            or tuple(v.shape[:3]) != (b, hkv, s)
+            or not 1 <= v.shape[3] <= hd or hkv == 0 or hq % hkv):
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
-                         f"(B, Hkv, S, hd) with Hq % Hkv == 0 for q "
-                         f"{tuple(q.shape)}")
+                         f"(B, Hkv, S, hd) and (B, Hkv, S, dv), 1 <= dv <= "
+                         f"hd, with Hq % Hkv == 0 for q {tuple(q.shape)}")
     if (q.dtype not in (torch.float32, torch.bfloat16)
             or k.dtype != q.dtype or v.dtype != q.dtype):
         raise ValueError(f"q, k and v must share one dtype, float32 or "
@@ -201,18 +204,19 @@ def check_no_grad(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """K7: q (B, Hq, S, hd), k/v (B, Hkv, S, hd), CUDA tensors of one
-    dtype (float32 or bfloat16), Hq % Hkv == 0 → (B, Hq, S, hd) in q's
-    dtype, through the variant ``pick_variant`` names. "tc" reads
-    ``tma_ready`` views in place and copies any other input; "simt" reads
-    ``simt_operands`` (a copy where the input is not contiguous, not
-    16-byte aligned, or its rows are not whole 16-byte units). A "tc"
-    barrier wait that has not completed after 60 s traps, which leaves
-    the CUDA context unusable for the rest of the process. Raises
-    ``RuntimeError`` under autograd (``check_no_grad``)."""
+    """K7: q (B, Hq, S, hd), k (B, Hkv, S, hd), v (B, Hkv, S, dv), CUDA
+    tensors of one dtype (float32 or bfloat16), Hq % Hkv == 0, dv <= hd →
+    (B, Hq, S, dv) in q's dtype, through the variant ``pick_variant``
+    names. "tc" reads ``tma_ready`` views in place and copies any other
+    input; "simt" reads ``simt_operands`` of v padded to hd (a copy where
+    the input is not contiguous, not 16-byte aligned, or its rows are not
+    whole 16-byte units). A "tc" barrier wait that has not completed
+    after 60 s traps, which leaves the CUDA context unusable for the rest
+    of the process. Raises ``RuntimeError`` under autograd
+    (``check_no_grad``)."""
     check_inputs(q, k, v)
     check_no_grad(q, k, v)
-    variant = pick_variant(q.dtype, q.shape[3])
+    variant = pick_variant(q.dtype, q.shape[3], v.shape[3])
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor (the plain "
@@ -221,20 +225,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"q, k and v must be on one device, got {name} "
                              f"on {t.device}")
     b, hq, s, hd = q.shape
-    hkv = k.shape[1]
+    hkv, dv = k.shape[1], v.shape[3]
     rows = TC_BM if variant == "tc" else SIMT_TQ
     if -(-s // rows) > MAX_GRID_Y:
         raise ValueError(f"S = {s} needs more than {MAX_GRID_Y} query tiles "
                          f"of {rows}")
     if variant == "tc":
         q, k, v = (t if tma_ready(t) else t.contiguous() for t in (q, k, v))
-        out = torch.empty((b, s, hq, hd), dtype=q.dtype,
+        out = torch.empty((b, s, hq, dv), dtype=q.dtype,
                           device=q.device).transpose(1, 2)
         args = ("flash_attention_tc", q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), b, hq, hkv, s, hd, int(causal),
-                hd ** -0.5, *_map_strides(q), *_map_strides(k),
+                v.data_ptr(), out.data_ptr(), b, hq, hkv, s, hd, dv,
+                int(causal), hd ** -0.5, *_map_strides(q), *_map_strides(k),
                 *_map_strides(v), *out.stride()[:3])
     else:
+        if dv != hd:
+            v = torch.nn.functional.pad(v, (0, hd - dv))
         q, k, v = simt_operands(q, k, v)
         out = torch.empty_like(q)
         args = ("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -247,8 +253,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         launch_count.add(flash_attention, "launches_tc")
     else:
         launch_count.add(flash_attention, "launches_simt")
-        if out.shape[3] != hd:
-            out = out[..., :hd].contiguous()
+        if out.shape[3] != dv:
+            out = out[..., :dv].contiguous()
     return out
 
 

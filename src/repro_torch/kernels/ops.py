@@ -229,9 +229,10 @@ def pack_weights(w_pm1: torch.Tensor) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Softmax attention, head-major (B, Hq, S, hd) queries over (B, Hkv,
-    S, hd) keys and values (GQA: query head h reads kv head h // (Hq /
-    Hkv)) → (B, Hq, S, hd) in q's dtype; ``causal`` applies the
-    lower-triangular mask. float32 or bfloat16, hd <= 256.
+    S, hd) keys and (B, Hkv, S, dv) values, 1 <= dv <= hd (GQA: query head
+    h reads kv head h // (Hq / Hkv)) → (B, Hq, S, dv) in q's dtype, the
+    scores scaled by hd ** -0.5; ``causal`` applies the lower-triangular
+    mask. float32 or bfloat16, hd <= 256.
 
     Nothing is padded: keys are masked at the true S (the reference's
     wrapper pads S to its block grid and, with ``causal=False``, lets the

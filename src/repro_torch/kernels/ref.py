@@ -128,10 +128,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dense softmax attention, the plain version of K7 (a copy of the
     reference's oracle).
 
-    q: (B, Hq, S, hd); k/v: (B, Hkv, S, hd) with Hq % Hkv == 0. Scores and
-    softmax in float32; ``p / l`` cast to v's dtype for the product with
-    V; ``causal`` applies the lower-triangular mask. Every key is one of
-    the true S (nothing is padded). Returns (B, Hq, S, hd) in q's dtype.
+    q: (B, Hq, S, hd); k: (B, Hkv, S, hd); v: (B, Hkv, S, dv) with
+    Hq % Hkv == 0 and dv <= hd (``flash_attention.check_inputs``). Scores
+    and softmax in float32, scaled by hd ** -0.5; ``p / l`` cast to v's
+    dtype for the product with V; ``causal`` applies the lower-triangular
+    mask. Every key is one of the true S (nothing is padded). Returns
+    (B, Hq, S, dv) in q's dtype.
     """
     s, hd = q.shape[2], q.shape[3]
     g = q.shape[1] // k.shape[1]

@@ -244,10 +244,11 @@ class OpCounter(TorchDispatchMode):
     def attention_as_k7(self):
         """Inside, ``kernels/ops.py::flash_attention`` (the models' no-grad
         attention, K7 on the card) counts as K7 runs, not as its plain
-        version's S×S scores: 4·B·Hq·hd FLOP per kept (query, key) pair
-        (S(S+1)/2 of them when causal), Q, K and V read once and O written
-        once; its result is a fresh tensor of q's shape. Swaps the module
-        attribute for the duration: one trace at a time."""
+        version's S×S scores: 2·B·Hq·(hd + dv) FLOP per kept (query, key)
+        pair (S(S+1)/2 of them when causal; 4·B·Hq·hd where v is as wide
+        as q), Q, K and V read once and O written once; its result is a
+        fresh (B, Hq, S, dv) tensor. Swaps the module attribute for the
+        duration: one trace at a time."""
         from repro_torch.kernels import flash_attention as kfa
         from repro_torch.kernels import ops
 
@@ -257,13 +258,15 @@ class OpCounter(TorchDispatchMode):
             kfa.check_inputs(q, k, v)
             kfa.check_no_grad(q, k, v)
             b, hq, s, hd = q.shape
+            dv = v.shape[3]
             kept = s * (s + 1) // 2 if causal else s * s
+            out = q.new_empty((b, hq, s, dv))
             c = self.costs
             c.ops += 1
-            c.flops += 4 * b * hq * hd * kept * self.act_share
-            c.bytes += (2 * _nbytes(q) + _nbytes(k) + _nbytes(v)) \
-                * self.act_share
-            return torch.empty_like(q)
+            c.flops += 2 * b * hq * (hd + dv) * kept * self.act_share
+            c.bytes += (_nbytes(q) + _nbytes(k) + _nbytes(v)
+                        + _nbytes(out)) * self.act_share
+            return out
 
         ops.flash_attention = k7
         try:

@@ -6,18 +6,21 @@ RoPE key per token shared by every head; the cache holds only
 (``c_kv``, ``k_rope``), r + dr numbers a token instead of 2·H·hd.
 
 * ``mla_forward`` (training / prefill, no cache) expands ``c_kv`` to full
-  K and V, broadcasts ``k_rope`` over the heads, zero-pads v from
-  ``v_head_dim`` to ``qk_nope + qk_rope`` so that q, k and v share one
-  head width, and runs ``kernels/ops.py::flash_attention`` on head-major
-  views: K7 on a CUDA tensor (hd 192 at DeepSeek-V2's widths, the
-  CUDA-core variant "simt"), its plain version on a CPU tensor. The
-  reference's CPU route (``attention.blockwise_causal_attention``) has the
-  same semantics as the plain version. Under autograd (grad mode on and
-  q, k or v requiring grad: a training step) it takes that blockwise
-  route on every device, as the reference trains off the TPU: K7 has no
-  backward (its wrapper raises there). Prefill, serving and any forward
-  under ``torch.no_grad()`` stay on K7. It is traced as ``mla.attention``
-  with device marks (``repro_torch/trace.py``).
+  K and V, broadcasts ``k_rope`` over the heads, and runs
+  ``kernels/ops.py::flash_attention`` on head-major views, q and k at
+  ``qk_nope + qk_rope`` and v at its own ``v_head_dim``: K7 on a CUDA
+  tensor (at DeepSeek-V2's widths, 192 / 128 in bf16, the tensor-core
+  variant "tc"; float32 runs "simt"), its plain version on a CPU tensor.
+  The reference zero-pads v to q's width and slices the output back,
+  which gives the same values. Its CPU route
+  (``attention.blockwise_causal_attention``, which sizes its accumulator
+  by q's width, so v is padded there) has the same semantics as the plain
+  version. Under autograd (grad mode on and q, k or v requiring grad: a
+  training step) it takes that blockwise route on every device, as the
+  reference trains off the TPU: K7 has no backward (its wrapper raises
+  there). Prefill, serving and any forward under ``torch.no_grad()`` stay
+  on K7. It is traced as ``mla.attention`` with device marks
+  (``repro_torch/trace.py``).
 * ``mla_decode_step`` is the absorbed form: ``W_uk`` folded into the
   query and ``W_uv`` into the output, so one token attends in the latent
   space, with the einsums in float32, as the reference does (no kernel
@@ -110,15 +113,15 @@ def mla_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)],
                       dim=-1)
-        vp = F.pad(v, (0, dn + dr - dv))          # one head width for q, k, v
-        if autograd_records(q, k, vp):
-            out = blockwise_causal_attention(q, k, vp, causal=causal)
+        if autograd_records(q, k, v):
+            # one head width for q, k and v in the blockwise scan
+            out = blockwise_causal_attention(
+                q, k, F.pad(v, (0, dn + dr - dv)), causal=causal)[..., :dv]
         else:
             out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                      vp.transpose(1, 2),
+                                      v.transpose(1, 2),
                                       causal=causal).transpose(1, 2)
-        return layers.dense(p["wo"], out[..., :dv].reshape(b, s, h * dv),
-                            quant)
+        return layers.dense(p["wo"], out.reshape(b, s, h * dv), quant)
 
 
 class MLACache(NamedTuple):

@@ -22,9 +22,12 @@ Tolerances:
   at most 0.1 % of the elements not bitwise equal (the two einsums round
   their bf16 sums apart now and then; 0.02 % measured).
 
-K7 has two CUDA variants, chosen by ``kernels/flash_attention.py::
-pick_variant`` from (dtype, hd): "tc" (``csrc/flash_attention_tc.cu``, the
-tensor cores, bf16 at hd 64 / 128) and "simt" (``csrc/flash_attention.cu``,
+K7 takes values narrower than the queries and keys (MLA: q and k at 192,
+v at 128); its output then has v's width, and equals the padded call's
+first columns. It has two CUDA variants, chosen by
+``kernels/flash_attention.py::pick_variant`` from (dtype, hd, dv): "tc"
+(``csrc/flash_attention_tc.cu``, the tensor cores, bf16 at (hd, dv) =
+(64, 64), (128, 128), (192, 128)) and "simt" (``csrc/flash_attention.cu``,
 the CUDA cores, everything else). "tc" changes the order of the
 arithmetic in two ways: the scale multiplies the float32 QK^T
 accumulator instead of q before the product, and the softmax runs in
@@ -33,13 +36,14 @@ m = max(s) * c, p = exp2(fma(s, c, -m))). A plain emulation of that order
 (``_tc_emulation``, in this file and not in the package: key tiles of the
 kernel's TC_BN, p rounded to bf16 before the PV product, l summing the
 float32 p)
-agrees with the Pallas kernel at the bf16 tolerance above, which shows
-the reordering stays inside the contract's tolerance.
+agrees with the Pallas kernel at the bf16 tolerance above (at (192, 128)
+against the kernel on v zero-padded to 192, first 128 columns), which
+shows the reordering stays inside the contract's tolerance.
 
 The CUDA kernels themselves run only on the card (``chip_smoke.py``);
 here the wrapper must refuse CPU tensors, its launch counters stay 0, and
 the pure parts of the dispatch (``pick_variant``, ``tma_ready``, the
-shared-memory mirror ``tc_smem_bytes``) are checked.
+"tc" block's shared memory recounted from the CUDA source) are checked.
 """
 import re
 from pathlib import Path
@@ -60,12 +64,21 @@ ULP_FLOOR, ULP_SHARE = 0.25, 0.005
 # tests/test_kernels.py's shapes (b, hq, hkv, s, hd)
 SHAPES = [(1, 2, 2, 256, 64), (2, 4, 2, 256, 64), (1, 8, 2, 512, 128),
           (1, 2, 1, 384, 64)]
+# MLA's head widths at DeepSeek-V2's sizes: q and k at qk_nope + qk_rope =
+# 192, v at v_head_dim = 128 (hd given as the pair (hd, dv))
+MLA_SHAPE = pytest.param(1, 2, 2, 256, (192, 128), id="1-2-2-256-192-128")
+
+
+def _widths(hd) -> tuple[int, int]:
+    """(q/k width, v width) of a shape's hd: an int, or a pair."""
+    return tuple(hd) if isinstance(hd, tuple) else (hd, hd)
 
 
 def _inputs(b, hq, hkv, s, hd, seed, dtype="float32"):
     rng = np.random.default_rng(seed)
-    arrs = [rng.standard_normal((b, h, s, hd)).astype(np.float32)
-            for h in (hq, hkv, hkv)]
+    hd, dv = _widths(hd)
+    arrs = [rng.standard_normal((b, h, s, w)).astype(np.float32)
+            for h, w in ((hq, hd), (hkv, hd), (hkv, dv))]
     if dtype == "bfloat16":      # round once so both sides see equal inputs
         arrs = [np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
                 for a in arrs]
@@ -136,7 +149,8 @@ def test_plain_matches_reference_oracle(b, hq, hkv, s, hd, causal, dtype):
 
 
 @pytest.mark.parametrize("bad", ["ndim", "groups", "kv_shape", "dtype_mix",
-                                 "float16", "head_dim"])
+                                 "float16", "head_dim", "v_wider",
+                                 "v_heads", "v_batch"])
 def test_entry_point_checks_raise(bad):
     q, k, v = (torch.zeros((1, h, 8, 16)) for h in (4, 2, 2))
     if bad == "ndim":
@@ -145,6 +159,12 @@ def test_entry_point_checks_raise(bad):
         k, v = (torch.zeros((1, 3, 8, 16)) for _ in range(2))
     elif bad == "kv_shape":
         v = torch.zeros((1, 2, 9, 16))
+    elif bad == "v_wider":          # dv > hd
+        v = torch.zeros((1, 2, 8, 24))
+    elif bad == "v_heads":          # narrower v, other dims unlike k's
+        v = torch.zeros((1, 1, 8, 8))
+    elif bad == "v_batch":
+        v = torch.zeros((2, 2, 8, 8))
     elif bad == "dtype_mix":
         k = k.to(torch.bfloat16)
     elif bad == "float16":
@@ -170,43 +190,84 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     (torch.bfloat16, 256, "simt"), (torch.bfloat16, 1, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
     (torch.float32, 96, "simt"), (torch.float32, 256, "simt"),
+    pytest.param(torch.bfloat16, (192, 128), "tc", id="bf16-192-128-tc"),
+    pytest.param(torch.bfloat16, (192, 192), "simt",
+                 id="bf16-192-192-simt"),
+    pytest.param(torch.float32, (192, 128), "simt", id="f32-192-128-simt"),
+    pytest.param(torch.bfloat16, (128, 64), "simt", id="bf16-128-64-simt"),
 ])
 def test_pick_variant(dtype, hd, want):
-    """bf16 at hd 64 / 128 goes to the tensor cores; float32 at any hd and
-    bf16 at any other hd <= 256 to the CUDA cores."""
-    assert kfa.pick_variant(dtype, hd) == want
+    """bf16 at (hd, dv) = (64, 64), (128, 128) and (192, 128) goes to the
+    tensor cores; float32 at any widths and bf16 at any others to the CUDA
+    cores. hd alone means dv = hd."""
+    if isinstance(hd, tuple):
+        assert kfa.pick_variant(dtype, *hd) == want
+    else:
+        assert kfa.pick_variant(dtype, hd) == want
+        assert kfa.pick_variant(dtype, hd, hd) == want
 
 
 @pytest.mark.parametrize("dtype,hd", [(torch.float16, 64),
                                       (torch.bfloat16, 0),
                                       (torch.bfloat16, 257),
-                                      (torch.float32, 512)])
+                                      (torch.float32, 512),
+                                      (torch.bfloat16, (128, 192)),
+                                      (torch.bfloat16, (192, 0))])
 def test_pick_variant_raises_outside_contract(dtype, hd):
     with pytest.raises(ValueError):
-        kfa.pick_variant(dtype, hd)
+        kfa.pick_variant(dtype, *_widths(hd))
+
+
+def _tc_source() -> str:
+    return (Path(kfa.__file__).parent / "csrc" /
+            "flash_attention_tc.cu").read_text()
 
 
 def _tc_constants() -> dict:
-    src = (Path(kfa.__file__).parent / "csrc" /
-           "flash_attention_tc.cu").read_text()
+    src = _tc_source()
     return {name: int(re.search(rf"constexpr int {name} = (\d+);",
                                 src).group(1))
-            for name in ("TC_BM", "TC_BN", "TC_STAGES")}
+            for name in ("TC_BM", "TC_BN", "TC_MAX_STAGES", "TC_SMEM_LIMIT")}
 
 
-@pytest.mark.parametrize("hd", kfa.TC_HEAD_DIMS)
-def test_tc_shared_memory_fits(hd):
-    """The Python mirror of the "tc" block's shared memory reads the tile
-    constants of the CUDA source and fits the H100's 227 KB per block
-    (bf16 staging: 230,456 bytes at hd 128, 115,768 at hd 64)."""
-    assert _tc_constants() == dict(TC_BM=kfa.TC_BM, TC_BN=kfa.TC_BN,
-                                   TC_STAGES=kfa.TC_STAGES)
-    n = kfa.tc_smem_bytes(hd)
-    assert n == (1024 + kfa.TC_BM * hd * 2
-                 + kfa.TC_STAGES * 2 * kfa.TC_BN * hd * 2
-                 + 8 * (1 + 2 * kfa.TC_STAGES))
-    assert n <= kfa.SMEM_PER_BLOCK
-    assert {64: 115768, 128: 230456}[hd] == n
+@pytest.mark.parametrize("hd,hd_v", [
+    pytest.param(64, 64, id="64"), pytest.param(128, 128, id="128"),
+    pytest.param(192, 128, id="192-128")])
+def test_tc_shared_memory_fits(hd, hd_v):
+    """The "tc" block's shared memory, counted here from the tile
+    constants of the CUDA source, fits the H100's 227 KB per block at
+    every "tc" shape, at the ring depth the source pins for it (its
+    ``static_assert`` on ``tc_stages``): 3 stages and 115,816 bytes at
+    64 / 64, 3 and 230,504 at 128 / 128, 2 and 214,088 at 192 / 128,
+    where 3 would take 295,992. The source's list of instantiations
+    (``TC_SHAPES``) is the wrapper's."""
+    src = _tc_source()
+    listed = re.search(r"#define TC_SHAPES\(X\) (.*)", src).group(1)
+    assert tuple((int(a), int(b)) for a, b in re.findall(
+        r"X\((\d+), (\d+)\)", listed)) == kfa.TC_SHAPES
+    assert (hd, hd_v) in kfa.TC_SHAPES
+    c = _tc_constants()
+    assert (c["TC_BM"], c["TC_BN"], c["TC_SMEM_LIMIT"]) == (
+        kfa.TC_BM, kfa.TC_BN, kfa.SMEM_PER_BLOCK)
+    pinned = {(int(a), int(b)): int(n) for a, b, n in re.findall(
+        r"tc_stages\((\d+), (\d+)\) == (\d+)", src)}
+    assert set(pinned) == set(kfa.TC_SHAPES)
+
+    def smem(stages: int) -> int:
+        # alignment slack, the Q tile, the K/V ring, 1 + 4 x stages
+        # mbarriers (tc_smem_bytes in the source)
+        return (1024 + c["TC_BM"] * hd * 2
+                + stages * c["TC_BN"] * (hd + hd_v) * 2
+                + 8 * (1 + 4 * stages))
+
+    stages = pinned[hd, hd_v]
+    want = {(64, 64): (3, 115816), (128, 128): (3, 230504),
+            (192, 128): (2, 214088)}[hd, hd_v]
+    assert (stages, smem(stages)) == want
+    assert smem(stages) <= c["TC_SMEM_LIMIT"]
+    # the deepest ring that fits, up to TC_MAX_STAGES
+    assert stages == c["TC_MAX_STAGES"] or smem(stages + 1) > c[
+        "TC_SMEM_LIMIT"]
 
 
 def test_tma_ready():
@@ -255,23 +316,25 @@ def _bf16(x: np.ndarray) -> np.ndarray:
 def _tc_emulation(q, k, v, causal: bool,
                   tile: int = kfa.TC_BN) -> np.ndarray:
     """K7 tc's order of arithmetic in plain numpy (float32 arrays holding
-    bf16 values, (B, Hq, S, hd) and (B, Hkv, S, hd)): per tile of keys the
+    bf16 values, (B, Hq, S, hd), (B, Hkv, S, hd) and v (B, Hkv, S, dv)):
+    per tile of keys the
     float32 scores s = q k^T, masked keys -inf; with c = scale * log2(e)
     (float32), the running max m = max(m_old, max(s) * c), corr =
     exp2(m_old - m), p = exp2(fma(s, c, -m)) (the fma in float64, rounded
     once to float32), l = l corr + sum(p) over the float32 p, acc = acc
     corr + bf16(p) v; out = bf16(acc / max(l, 1e-30))."""
     b, hq, s, hd = q.shape
+    dv = v.shape[3]
     group = hq // k.shape[1]
     scale = np.float32(np.float64(np.float32(hd ** -0.5)) * np.log2(np.e))
     rows = np.arange(s)[:, None]
-    out = np.empty_like(q)
+    out = np.empty((b, hq, s, dv), np.float32)
     for bi in range(b):
         for h in range(hq):
             qh, kh, vh = q[bi, h], k[bi, h // group], v[bi, h // group]
             m = np.full((s,), -np.inf, np.float32)
             l = np.zeros((s,), np.float32)
-            acc = np.zeros((s, hd), np.float32)
+            acc = np.zeros((s, dv), np.float32)
             for k0 in range(0, s, tile):
                 cols = np.arange(k0, min(k0 + tile, s))[None, :]
                 sc = qh @ kh[k0:k0 + tile].T
@@ -288,7 +351,7 @@ def _tc_emulation(q, k, v, causal: bool,
     return out
 
 
-@pytest.mark.parametrize("b,hq,hkv,s,hd", SHAPES)
+@pytest.mark.parametrize("b,hq,hkv,s,hd", SHAPES + [MLA_SHAPE])
 @pytest.mark.parametrize("causal", [True, False])
 def test_tc_order_of_arithmetic_matches_reference_kernel(b, hq, hkv, s, hd,
                                                           causal):
@@ -296,17 +359,43 @@ def test_tc_order_of_arithmetic_matches_reference_kernel(b, hq, hkv, s, hd,
     exp2 with log2 e folded in, p rounded to bf16, l from the float32 p)
     agrees with the Pallas kernel in interpret mode at BF16_TOL with at
     most 0.5 % of the elements beyond one bf16 ulp, and with the port's
-    plain version at the same bound."""
-    assert kfa.pick_variant(torch.bfloat16, hd) == "tc"
-    arrs = _inputs(b, hq, hkv, s, hd, seed=7 * s + hd + causal,
+    plain version at the same bound. At MLA's widths the Pallas kernel,
+    which takes one width, runs on v zero-padded to q's, and its first dv
+    columns are compared."""
+    hd, dv = _widths(hd)
+    assert kfa.pick_variant(torch.bfloat16, hd, dv) == "tc"
+    arrs = _inputs(b, hq, hkv, s, (hd, dv), seed=7 * s + hd + causal,
                    dtype="bfloat16")
     (jq, jk, jv), (q, k, v) = _both(arrs, "bfloat16")
     got = torch.from_numpy(_tc_emulation(*arrs, causal=causal))
+    assert got.shape == (b, hq, s, dv)
+    jv = jnp.pad(jv, ((0, 0), (0, 0), (0, 0), (0, hd - dv)))
     want = jops.flash_attention(jq, jk, jv, causal=causal, q_block=128,
-                                kv_block=128)
+                                kv_block=128)[..., :dv]
     _check(got, want, "bfloat16")
     _check(got, ops.flash_attention(q, k, v, causal=causal).float().numpy(),
            "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_narrow_v_equals_padded_call(dtype, causal):
+    """v at dv = 128 under q and k at 192 (MLA's widths): the plain
+    version's output is (B, Hq, S, 128) and equals, bit for bit, the first
+    128 columns of the call on v zero-padded to 192 (each output column
+    sums its own column of v; the zero columns add nothing). The "simt"
+    wrapper pads v so and slices the same columns on the card."""
+    b, hq, hkv, s = 1, 4, 2, 70
+    arrs = _inputs(b, hq, hkv, s, (192, 128), seed=5 + causal, dtype=dtype)
+    _, (q, k, v) = _both(arrs, dtype)
+    kfa.check_inputs(q, k, v)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert got.shape == (b, hq, s, 128) and got.dtype == q.dtype
+    padded = ops.flash_attention(
+        q, k, torch.nn.functional.pad(v, (0, 64)), causal=causal)
+    assert padded.shape == (b, hq, s, 192)
+    assert not bool(padded[..., 128:].any())
+    torch.testing.assert_close(got, padded[..., :128], rtol=0, atol=0)
 
 
 def test_cpu_tensors_never_launch_k7():

@@ -4,10 +4,10 @@ the reference's ``mla_init`` weights carried across as numpy arrays and
 the same seeded numpy inputs: deepseek-v2-lite-16b's smoke widths (no
 q-LoRA) and deepseek-v2-236b's (q-LoRA).
 
-On the CPU the port's prefill attention is K7's plain version at hd =
-qk_nope + qk_rope with v zero-padded to it; the reference's is its
-blockwise scan. Tolerances: float32 rtol = atol = 1e-5; bfloat16 at the
-LM zoo's ``BF16`` (rtol 2e-2, atol 6.25e-2).
+On the CPU the port's prefill attention is K7's plain version with q and
+k at qk_nope + qk_rope and v at its own v_head_dim; the reference's is its
+blockwise scan on v zero-padded to q's width. Tolerances: float32 rtol =
+atol = 1e-5; bfloat16 at the LM zoo's ``BF16`` (rtol 2e-2, atol 6.25e-2).
 """
 import functools
 
@@ -162,3 +162,59 @@ def test_prefill_equals_absorbed_decode(arch):
     got = torch.cat([mla.mla_decode_step(p, cfg, x[:, i:i + 1], cache)[0]
                      for i in range(9)], dim=1)
     torch.testing.assert_close(got, want, **F32)
+
+
+# DeepSeek-V2's head widths (both sizes): q and k at 128 + 64 = 192, v at
+# 128, on the smoke model's other widths
+HEAD_WIDTHS = dict(qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128)
+
+
+@functools.lru_cache(maxsize=None)
+def wide_heads_layer(arch: str):
+    """``attn_layer`` at ``HEAD_WIDTHS``, float32."""
+    jcfg = jconfigs.get_config(arch, smoke=True).with_(**HEAD_WIDTHS)
+    cfg = configs.get_config(arch, smoke=True).with_(**HEAD_WIDTHS)
+    jp = jax.jit(jmla.mla_init, static_argnums=(1, 2))(
+        jax.random.PRNGKey(5), jcfg, jnp.float32)
+    return cfg, jcfg, jp, tf.params_from_numpy(
+        cfg, jax.tree.map(np.asarray, jp))
+
+
+def _recorded_flash(monkeypatch) -> list:
+    """Record the (q, k, v) shapes of every ``ops.flash_attention`` call
+    ``mla_forward`` makes."""
+    from repro_torch.kernels import ops
+    calls, real = [], ops.flash_attention
+
+    def recorded(q, k, v, **kw):
+        calls.append((tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+        return real(q, k, v, **kw)
+    monkeypatch.setattr(ops, "flash_attention", recorded)
+    return calls
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_mla_forward_at_full_head_widths(arch, grad, monkeypatch):
+    """At DeepSeek-V2's head widths the no-grad forward hands K7's entry
+    point v unpadded, (B, H, S, 128) under q and k at 192 (K7 "tc"'s
+    shape on the card in bf16), and equals the reference's forward, which
+    pads v to 192 and slices it back. Under autograd it takes the
+    blockwise route (no K7 call), pads v there, and equals it too."""
+    cfg, jcfg, jp, p = wide_heads_layer(arch)
+    b, s = 2, 11
+    x = np.random.default_rng(6).standard_normal(
+        (b, s, cfg.d_model)).astype(np.float32)
+    pos = np.arange(s)[None, :]
+    want = jmla_forward(jp, jcfg, jnp.asarray(x), jnp.asarray(pos))
+    calls = _recorded_flash(monkeypatch)
+    if grad:
+        p = tf.tree_map(lambda t: t.clone().requires_grad_(), p)
+    got = mla.mla_forward(p, cfg, torch.from_numpy(x), torch.from_numpy(pos))
+    h = cfg.n_heads
+    if grad:
+        assert not calls and got.grad_fn is not None
+    else:
+        assert calls == [((b, h, s, 192), (b, h, s, 192), (b, h, s, 128))]
+    assert got.shape == (b, s, cfg.d_model)
+    np.testing.assert_allclose(_np(got), _np(want), **F32)
