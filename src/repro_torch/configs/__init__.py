@@ -4,8 +4,10 @@
 ``ARCH_MODULES`` holds every published architecture of the reference (the
 dense, moe, vlm, ssm, hybrid and audio families of
 ``models/transformer.py``); ``BINARY_LM_MODULES`` the XNOR LM
-(``models/xnor_lm.py``). Each module exports ``CONFIG``, ``SMOKE_CONFIG``
-and ``SHAPES`` / ``SKIPPED_SHAPES`` (the assigned input-shape cells).
+(``models/xnor_lm.py``); ``PORT_ONLY_MODULES`` the architectures only the
+port runs (Kimi Linear), outside ``ARCH_NAMES``. Each module exports
+``CONFIG``, ``SMOKE_CONFIG`` and ``SHAPES`` / ``SKIPPED_SHAPES`` (the
+assigned input-shape cells).
 """
 from __future__ import annotations
 
@@ -30,14 +32,23 @@ BINARY_LM_MODULES = {
     "xnor-lm-tiny": "repro_torch.configs.xnor_lm_tiny",
 }
 
+# architectures the port runs that the reference's table does not hold;
+# ``get_config`` resolves them, ``ARCH_NAMES`` stays the reference's set
+PORT_ONLY_MODULES = {
+    "kimi-linear-48b-a3b": "repro_torch.configs.kimi_linear_48b_a3b",
+}
+
 
 def _mod(name: str):
     if name in ARCH_MODULES:
         return importlib.import_module(ARCH_MODULES[name])
     if name in BINARY_LM_MODULES:
         return importlib.import_module(BINARY_LM_MODULES[name])
+    if name in PORT_ONLY_MODULES:
+        return importlib.import_module(PORT_ONLY_MODULES[name])
     raise KeyError(f"unknown arch {name!r}; known: "
-                   f"{sorted(ARCH_MODULES) + sorted(BINARY_LM_MODULES)}")
+                   f"{sorted(ARCH_MODULES) + sorted(BINARY_LM_MODULES)}"
+                   f" + {sorted(PORT_ONLY_MODULES)}")
 
 
 def get_config(name: str, *, smoke: bool = False, quant: str = "none"):

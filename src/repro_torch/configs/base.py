@@ -94,6 +94,18 @@ class ModelConfig:
     # EXPERIMENTS.md §Dry-run — chosen so args+temps < 16 GB/chip)
     train_microbatches: int = 4
 
+    # Settings of architectures only the port holds (``PortModelConfig``
+    # makes them fields). Here they are plain class attributes, not fields,
+    # so a config of the reference's table reads today's behaviour and
+    # ``dataclasses.asdict`` gives the reference's keys.
+    kda_layers = ()
+    kda_heads = 0
+    kda_head_dim = 128
+    mla_nope = False
+    router = "softmax"
+    routed_scale = 1.0
+    expert_share = ()
+
     def __post_init__(self):
         if self.n_kv_heads == 0 and self.attn_type == "gqa":
             object.__setattr__(self, "n_kv_heads", self.n_heads)
@@ -164,3 +176,32 @@ class ModelConfig:
             total += self.n_encoder_layers * (d * n_q + 2 * d * n_kv + n_q * d
                                               + ffn_params(f) + n_q * d)
         return total
+
+
+@dataclass(frozen=True)
+class PortModelConfig(ModelConfig):
+    """A ``ModelConfig`` with the fields of architectures the reference does
+    not hold; every default is today's behaviour.
+
+    Kimi Linear (``configs/kimi_linear_48b_a3b.py``): a per-layer mixer
+    pattern inside the moe family, KDA linear attention
+    (``models/kda.py``) beside MLA without RoPE, a sigmoid router with a
+    selection bias and a scale on the gates, and an expert share."""
+    # Each default is ModelConfig's class attribute of the same name.
+    # 1-based numbers of the layers whose mixer is KDA (the release's
+    # linear_attn_config.kda_layers); the others take ``attn_type``
+    kda_layers: tuple = ModelConfig.kda_layers
+    kda_heads: int = ModelConfig.kda_heads
+    # d_k = d_v of a KDA head, and the width of its gates' low-rank
+    # projections
+    kda_head_dim: int = ModelConfig.kda_head_dim
+    # MLA's 64-wide q/k part left unrotated
+    mla_nope: bool = ModelConfig.mla_nope
+    # softmax | sigmoid (the selection bias b picks the experts and
+    # weights none)
+    router: str = ModelConfig.router
+    # routed_scaling_factor on the routed gates
+    routed_scale: float = ModelConfig.routed_scale
+    # (first, count) of the routed experts this layer holds of n_experts;
+    # () holds them all
+    expert_share: tuple = ModelConfig.expert_share

@@ -71,7 +71,9 @@ def mla_init(generator: torch.Generator, cfg, dtype=torch.bfloat16,
 
 
 def _queries(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
-    """(q_nope (B, S, H, dn), q_rope (B, S, H, dr)), RoPE applied."""
+    """(q_nope (B, S, H, dn), q_rope (B, S, H, dr)), RoPE applied (none
+    with ``cfg.mla_nope``: Kimi Linear's MLA keeps the dr-wide part
+    unrotated)."""
     b, s, _ = x.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     quant = _quant(cfg)
@@ -81,15 +83,20 @@ def _queries(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
     else:
         q = layers.dense(p["wq"], x, quant)
     q = q.reshape(b, s, cfg.n_heads, dn + dr)
+    if cfg.mla_nope:
+        return q[..., :dn], q[..., dn:]
     return q[..., :dn], layers.apply_rope(q[..., dn:], positions,
                                           cfg.rope_theta)
 
 
 def _latents(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
-    """(c_kv (B, S, r) after the kv-norm, k_rope (B, S, dr) after RoPE)."""
+    """(c_kv (B, S, r) after the kv-norm, k_rope (B, S, dr) after RoPE,
+    or unrotated with ``cfg.mla_nope``)."""
     r = cfg.kv_lora_rank
     ckv_rope = layers.dense(p["wkv_a"], x, _quant(cfg))          # (B,S,r+dr)
     c_kv = layers.apply_norm(p["kv_norm"], ckv_rope[..., :r])
+    if cfg.mla_nope:
+        return c_kv, ckv_rope[..., r:]
     k_rope = layers.apply_rope(ckv_rope[..., r:][:, :, None, :], positions,
                                cfg.rope_theta)[:, :, 0, :]
     return c_kv, k_rope

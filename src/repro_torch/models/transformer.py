@@ -4,7 +4,9 @@
 dense | vlm : [norm → GQA attention → norm → MLP] × L; vlm prepends the
               projected patch embeddings of a stub vision frontend
 moe         : [norm → MLA attention → norm → (dense MLP | shared + routed
-              MoE)] × L, the first ``first_dense_layers`` with the dense MLP
+              MoE)] × L, the first ``first_dense_layers`` with the dense MLP;
+              with ``cfg.kda_layers`` (Kimi Linear) the layers of that list
+              take a KDA mixer (``models/kda.py``) in MLA's place
 ssm (rwkv6) : [norm → time mix → norm → channel mix] × L
 hybrid      : chunks of ``attn_every`` Mamba-2 blocks, each chunk followed
 (zamba2)      by ONE weight-shared GQA + MLP block (Zamba2's shared block)
@@ -14,9 +16,11 @@ audio       : a bidirectional encoder stack over the projected frame
 
 Layers are weight-stacked along a leading layer axis, as in the reference
 (``"stack0_dense_attn"``; moe: ``"stack0_dense_attn_mla"`` and
-``"stack1_moe"``; ``"stack0_rwkv"``, ``"stack0_mamba"``; audio:
+``"stack1_moe"``, and with KDA layers also ``"stack2_dense_kda"`` and
+``"stack3_moe_kda"``; ``"stack0_rwkv"``, ``"stack0_mamba"``; audio:
 ``"stack0_dec_xattn"`` and the encoder's ``"enc"``), and applied by a
-Python loop over that axis where the reference scans. Every
+Python loop over the layers in the model's order (``_layer_kinds``),
+each taking its row of its kind's stack, where the reference scans. Every
 full-sequence self-attention goes through
 ``kernels/ops.py::flash_attention`` (``attention.gqa_forward`` or
 ``mla.mla_forward``), so on the card ``forward_train`` and ``prefill``
@@ -28,8 +32,9 @@ reference's does (``audio_proj`` is ``frames @ w.to(frames.dtype)``):
 float32 frames encode in float32 in a bf16 model. The decoder's
 cross-attention stays plain (``attention.cross_attn_forward``). Serving
 steps one token per slot through ``decode_step``, which updates the
-per-layer caches (K/V, MLA's latents, the recurrent states and the
-shared block's per-application K/V) in place.
+per-layer caches (K/V, MLA's latents, the recurrent states, the KDA
+layers' conv tails and delta-rule states beside the MLA layers' latents,
+and the shared block's per-application K/V) in place.
 
 Training: ``loss_fn`` is the reference's chunked cross-entropy
 (``LOSS_CHUNK`` positions a chunk, float32 logits, each chunk under
@@ -53,12 +58,14 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, layers, mamba2, mla, moe, rwkv6
+from repro_torch.models import (attention, kda, layers, mamba2, mla, moe,
+                                rwkv6)
 # tree_leaves / tree_unflatten are re-exported for callers of this module
 from repro_torch.train.tree import (  # noqa: F401
     tree_leaves, tree_map, tree_unflatten)
 
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
+KDA_KINDS = ("dense_kda", "moe_kda")
 
 
 def _dtype(cfg):
@@ -95,6 +102,16 @@ def _block_init(generator: torch.Generator, cfg, layer_kind: str,
     if layer_kind == "mamba":
         return {"ln1": layers.norm_init(cfg.d_model, cfg.norm_type, device),
                 "mamba": mamba2.mamba_init(generator, cfg, dt, device)}
+    if layer_kind in KDA_KINDS:
+        p = {"ln1": layers.norm_init(cfg.d_model, cfg.norm_type, device),
+             "kda": kda.kda_init(generator, cfg, dt, device),
+             "ln2": layers.norm_init(cfg.d_model, cfg.norm_type, device)}
+        if layer_kind == "moe_kda":
+            p["moe"] = moe.moe_init(generator, cfg, dt, device)
+        else:
+            p["mlp"] = layers.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                       cfg.mlp_type, dt, device)
+        return p
     if layer_kind not in ("dense_attn", "moe", "enc_attn", "dec_xattn"):
         raise ValueError(layer_kind)
     p = _attn_block_init(generator, cfg, dt, device)
@@ -127,10 +144,28 @@ def _stack_init(generator: torch.Generator, cfg, layer_kind: str, n: int,
     return stack
 
 
+def _layer_kinds(cfg) -> list[str]:
+    """The kind of each layer of the decoder stack, in order."""
+    _check_family(cfg)
+    if cfg.family == "moe" and cfg.kda_layers:
+        nd = cfg.first_dense_layers
+        return [("dense" if i < nd else "moe") + "_kda"
+                if i + 1 in cfg.kda_layers else
+                ("dense_attn_mla" if i < nd else "moe")
+                for i in range(cfg.n_layers)]
+    return [kind for kind, count in _layer_plan(cfg) for _ in range(count)]
+
+
 def _layer_plan(cfg) -> list[tuple[str, int]]:
-    """[(layer_kind, count)] segments of the decoder stack."""
+    """[(layer_kind, count)]: the stacks of the decoder, one a kind; in
+    order of the layers, save for the moe family's KDA layers (whose
+    order ``_layer_kinds`` gives)."""
     _check_family(cfg)
     if cfg.family == "moe":
+        if cfg.kda_layers:
+            kinds = _layer_kinds(cfg)
+            return [(kind, kinds.count(kind)) for kind in
+                    ("dense_attn_mla", "moe") + KDA_KINDS]
         nd = cfg.first_dense_layers
         return [("dense_attn_mla", nd), ("moe", cfg.n_layers - nd)]
     if cfg.family == "ssm":
@@ -264,17 +299,40 @@ def _apply_mamba(p: dict, cfg, x: torch.Tensor, st: mamba2.MambaState):
     return (x + y).to(x.dtype), st
 
 
+def _apply_kda(p: dict, cfg, x: torch.Tensor, st: kda.KDAState):
+    """A KDA layer, its FFN dense or MoE → (x, the MoE's aux loss or None,
+    the new state)."""
+    h = layers.apply_norm(p["ln1"], x, cfg.norm_type)
+    y, st = kda.kda_forward(p["kda"], cfg, h, st)
+    x = x + y
+    h = layers.apply_norm(p["ln2"], x, cfg.norm_type)
+    if "moe" in p:
+        y, aux = moe.moe_apply(p["moe"], cfg, h)
+        return x + y, aux, st
+    return x + layers.mlp_apply(p["mlp"], h, cfg.mlp_type, cfg.quant), None, st
+
+
+def _apply_kda_step(p: dict, cfg, x: torch.Tensor, st: kda.KDAState):
+    x, _, st = _apply_kda(p, cfg, x, st)
+    return x, st
+
+
 def _layer(stack: dict, i: int) -> dict:
     return tree_map(lambda a: a[i], stack)
 
 
 def _layers(cfg, params: dict):
-    """(layer kind "dense_attn" | "moe" | "rwkv" | "mamba" | "dec_xattn",
-    that layer's parameters) of every layer of the stack, in order."""
-    for i, (kind, count) in enumerate(_layer_plan(cfg)):
-        for j in range(count):
-            yield ("dense_attn" if kind == "dense_attn_mla" else kind,
-                   _layer(params[f"stack{i}_{kind}"], j))
+    """(layer kind "dense_attn" | "moe" | "dense_kda" | "moe_kda" | "rwkv"
+    | "mamba" | "dec_xattn", that layer's parameters) of every layer of
+    the stack, in order."""
+    keys = {kind: f"stack{i}_{kind}"
+            for i, (kind, _) in enumerate(_layer_plan(cfg))}
+    taken = dict.fromkeys(keys, 0)
+    for kind in _layer_kinds(cfg):
+        j = taken[kind]
+        taken[kind] += 1
+        yield ("dense_attn" if kind == "dense_attn_mla" else kind,
+               _layer(params[keys[kind]], j))
 
 
 def _recurrent_state(cfg, batch: int, device):
@@ -325,6 +383,11 @@ def _decoder_stack(cfg, params: dict, x: torch.Tensor,
         elif kind == "rwkv":
             x, _ = _remat(cfg, _apply_rwkv, p, cfg, x,
                           _recurrent_state(cfg, x.shape[0], x.device))
+        elif kind in KDA_KINDS:
+            x, a, _ = _remat(cfg, _apply_kda, p, cfg, x,
+                             kda.init_state(cfg, x.shape[0], x.device))
+            if a is not None:
+                aux = aux + a
         elif kind == "mamba":
             x, _ = _remat(cfg, _apply_mamba, p, cfg, x,
                           _recurrent_state(cfg, x.shape[0], x.device))
@@ -466,7 +529,9 @@ class ServeState(NamedTuple):
                                 # (ssm) rwkv6.RWKVState, (L, B, …) float32;
                                 # (hybrid) {"ssm": mamba2.MambaState (L, B,
                                 # …), "shared_kv": KVCache with one cache per
-                                # shared-block application, (n_chunks, B, …)}
+                                # shared-block application, (n_chunks, B, …)};
+                                # (moe with KDA layers) {"kda": kda.KDAState
+                                # (L_kda, B, …), "mla": MLACache (L_mla, …)}
     enc_kv: Any                 # the audio family's cross (K, V), each
                                 # (L, B, S_enc, H, hd), or None
     length: torch.Tensor        # scalar int64 — steps taken
@@ -493,6 +558,11 @@ def init_serve_state(cfg, batch: int, max_len: int,
                           None, length)
     cache = mla if cfg.attn_type == "mla" else attention
     per = cache.init_cache(cfg, batch, max_len, _dtype(cfg), device)
+    if cfg.family == "moe" and cfg.kda_layers:
+        n_kda = sum(k in KDA_KINDS for k in _layer_kinds(cfg))
+        return ServeState(
+            {"kda": _stacked(kda.init_state(cfg, batch, device), n_kda),
+             "mla": _stacked(per, cfg.n_layers - n_kda)}, None, length)
     return ServeState(_stacked(per, cfg.n_layers), None, length)
 
 
@@ -512,8 +582,9 @@ def decode_step(cfg, params: dict, state: ServeState, tokens: torch.Tensor,
     """One decode step with a filled cache: (B, 1) tokens → ((B, 1, vocab)
     logits, state). Updates every layer's cache or recurrent state and the
     step count in place and returns the state. The recurrent families
-    take their token-scan forms (a one-token forward through the stack);
-    the hybrid's shared block attends to its own cache at each
+    take their token-scan forms (a one-token forward through the stack),
+    as do the moe family's KDA layers beside its MLA layers' absorbed
+    decode; the hybrid's shared block attends to its own cache at each
     application. The moe family's MoE layers route every step's token
     through all experts' capacity buffers, as the reference does. The
     audio family cross-attends to ``state.enc_kv``; where that is None it
@@ -545,9 +616,19 @@ def decode_step(cfg, params: dict, state: ServeState, tokens: torch.Tensor,
     else:
         step = (mla.mla_decode_step if cfg.attn_type == "mla"
                 else attention.gqa_decode_step)
+        # the moe family with KDA layers keeps {"kda", "mla"}: row n_kda of
+        # the KDA states, row i - n_kda of the MLA caches
+        kv = c["mla"] if isinstance(c, dict) else c
+        n_kda = 0
         for i, (kind, p) in enumerate(_layers(cfg, params)):
+            if kind in KDA_KINDS:
+                x = _recurrent_step(_apply_kda_step, p, cfg, x, c["kda"],
+                                    n_kda)
+                n_kda += 1
+                continue
             h = layers.apply_norm(p["ln1"], x, cfg.norm_type)
-            y, _ = step(p["attn"], cfg, h, type(c)(*(a[i] for a in c)))
+            y, _ = step(p["attn"], cfg, h,
+                        type(kv)(*(a[i - n_kda] for a in kv)))
             x = x + y
             h = layers.apply_norm(p["ln2"], x, cfg.norm_type)
             if kind == "moe":

@@ -296,6 +296,7 @@ def test_moe_counts_the_pairs_dropped_at_capacity(overflow):
     trace.disable()
     spans, counters = trace.drain()
     assert counters == {"moe.pairs": b * s * cfg.top_k,
+                        "moe.pairs_held": b * s * cfg.top_k,
                         "moe.pairs_dropped": want}
     cap = moe.capacity(s, cfg.n_experts, cfg.top_k)
     if overflow:
